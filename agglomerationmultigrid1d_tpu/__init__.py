@@ -1,85 +1,39 @@
-"""agglomerationmultigrid1d_tpu — a TPU-native agglomeration-multigrid framework.
+"""Deprecated import name of :mod:`agglomerationmultigrid1d`.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
-``mheinz757/AgglomerationMultigrid1D`` (pure-Julia, serial): high-order CG / DG /
-agglomerated-DG discretizations of the 1D Poisson problem, inter-level transfer
-operators, Jacobi / block-Jacobi / Schwarz smoothers, Galerkin coarse operators and a
-multigrid V-cycle solver — all expressed as batched dense block tensors in a
-structure-of-arrays layout (element axis on TPU lanes) instead of general sparse
-matrices.
-
-Design notes
-------------
-* Every operator in the 1D problem family is (block-)banded with a uniform block
-  size (reference: ``src/dg_mesh.jl``, ``src/block_diagonal.jl``).  We therefore use
-  three core operator formats (`ops`):
-    - ``BlockDiag``     blocks ``(bs, bs, n)``           (mass matrices)
-    - ``BlockTridiag``  diagonals ``3 x (bs, bs, n)``    (DG/agg G, D, C, A)
-    - ``CgOperator``    overlapping element windows ``(n_el, p+1, p+1)`` plus the
-      assembled scalar DIA band ``(2p+1, n_nodes)``      (CG mass/stiffness)
-  The trailing axis is the element/node axis — it maps onto the TPU's 128-wide
-  vector lanes, so block matvecs and smoother sweeps become bandwidth-optimal
-  VPU loops rather than tiny (<= 9x9) MXU matmuls.
-* Double precision is enabled by default for numerical parity with the reference
-  (tolerances down to 1e-10 relative residuals).  Set
-  ``AGGMG_NO_X64=1`` before import to keep JAX's default f32.
-* Multi-chip scaling lives in `parallel`: element-axis domain decomposition via
-  ``jax.sharding.Mesh`` + ``shard_map``, one-block halo exchange with
-  ``lax.ppermute``, ``psum`` norms, and replicated coarse solves.
+The package was renamed; this alias keeps old imports working.  Every
+``<this name>.<sub>`` import resolves to the very module object of
+``agglomerationmultigrid1d.<sub>`` (no second copy of any module, so types
+and module state are shared), and importing it warns once.
 """
 
-import os as _os
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+import warnings
 
-import jax as _jax
+_NEW = "agglomerationmultigrid1d"
+_OLD = __name__
 
-if not _os.environ.get("AGGMG_NO_X64"):
-    _jax.config.update("jax_enable_x64", True)
 
-# TPU matmuls/einsums default to single-pass bf16-mantissa MXU arithmetic
-# (~1e-3 relative error); every contraction here (transfers, Galerkin triple
-# products, block matvecs) feeds a solver with 1e-10 relative-residual targets,
-# where that noise makes the f32 V-cycle non-contractive.  Force true-f32
-# contractions (set AGGMG_FAST_MATMUL=1 to restore the hardware default).
-if not _os.environ.get("AGGMG_FAST_MATMUL"):
-    _jax.config.update("jax_default_matmul_precision", "highest")
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname.startswith(_OLD + "."):
+            return importlib.util.spec_from_loader(fullname, self)
+        return None
 
-# Multilevel V-cycles are large fused graphs; persistent compilation caching
-# makes repeat runs (and every run after the first on a given config) instant.
-# The cache is partitioned by a CPU-feature fingerprint: JAX's cache key does
-# NOT include the host's CPU features, so a CPU executable cached by a machine
-# with a different x86 feature set loads anyway and can SIGILL/segfault
-# (observed in the cpu_aot_loader "machine features don't match" path).
-if not _os.environ.get("AGGMG_NO_COMPILE_CACHE"):
+    def create_module(self, spec):
+        module = importlib.import_module(_NEW + spec.name[len(_OLD):])
+        self._spec = module.__spec__  # the import system overwrites it next
+        return module
 
-    def _cpu_fingerprint() -> str:
-        import hashlib
+    def exec_module(self, module):
+        module.__spec__ = self._spec
 
-        try:
-            with open("/proc/cpuinfo") as f:
-                stanza = []
-                for line in f:
-                    # x86 exposes "flags"; ARM uses "Features" + "CPU part"
-                    if line.startswith(("flags", "Features", "CPU part")):
-                        return hashlib.sha1(line.encode()).hexdigest()[:12]
-                    if not line.strip():  # end of the first processor stanza
-                        break
-                    stanza.append(line)
-                if stanza:  # no feature line: hash the whole first stanza
-                    return hashlib.sha1("".join(stanza).encode()).hexdigest()[:12]
-        except OSError:
-            pass
-        import platform
 
-        return hashlib.sha1(platform.processor().encode()).hexdigest()[:12]
-
-    _cache_dir = _os.environ.get(
-        "AGGMG_COMPILE_CACHE_DIR",
-        _os.path.join(_os.path.expanduser("~/.cache/aggmg_jax"), _cpu_fingerprint()),
-    )
-    _os.makedirs(_cache_dir, exist_ok=True)
-    _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-
-from . import numerics, mesh, ops, assembly, transfer, smoothers, models, parallel, utils  # noqa: E402,F401
-
-__version__ = "0.1.0"
+warnings.warn(
+    f"'{_OLD}' is a deprecated name of '{_NEW}'; import '{_NEW}' instead",
+    DeprecationWarning, stacklevel=2,
+)
+sys.meta_path.insert(0, _Alias())
+sys.modules[_OLD] = importlib.import_module(_NEW)

@@ -47,14 +47,14 @@ def emit(result: dict) -> None:
 import jax
 import jax.numpy as jnp
 
-from agglomerationmultigrid1d_tpu.assembly import dg_flux_operators
-from agglomerationmultigrid1d_tpu.mesh import BoundaryCondition, create_uniform_mesh, make_dg_mesh
-from agglomerationmultigrid1d_tpu.models.hierarchy import _schur_stiffness
-from agglomerationmultigrid1d_tpu.ops import bt_matvec
-from agglomerationmultigrid1d_tpu.ops.block_tridiag import block_mul
-from agglomerationmultigrid1d_tpu.ops.pallas import pallas_block_jacobi_sweep
-from agglomerationmultigrid1d_tpu.smoothers import BlockJacobiSmoother, apply_smoother, dg_smoother
-from agglomerationmultigrid1d_tpu.utils.host import (
+from agglomerationmultigrid1d.assembly import dg_flux_operators
+from agglomerationmultigrid1d.mesh import BoundaryCondition, create_uniform_mesh, make_dg_mesh
+from agglomerationmultigrid1d.models.hierarchy import _schur_stiffness
+from agglomerationmultigrid1d.ops import bt_matvec
+from agglomerationmultigrid1d.ops.block_tridiag import block_mul
+from agglomerationmultigrid1d.ops.pallas import pallas_block_jacobi_sweep
+from agglomerationmultigrid1d.smoothers import BlockJacobiSmoother, apply_smoother, dg_smoother
+from agglomerationmultigrid1d.utils.host import (
     enable_compilation_cache,
     on_host,
     to_accelerator,
@@ -80,7 +80,7 @@ def build_smoother_problem(n_el: int, p: int = 3, dtype=jnp.float64):
         s = dg_smoother(a, "blockJac")
         b = jnp.sin(jnp.linspace(0.0, 3.0, (p + 1) * n_el)).reshape(n_el, p + 1).T
         if dtype != jnp.float64:
-            from agglomerationmultigrid1d_tpu.utils.precision import tree_astype
+            from agglomerationmultigrid1d.utils.precision import tree_astype
 
             a, s, b = tree_astype((a, s, b), dtype)
     a, s, b = to_accelerator((a, s, b))
@@ -146,7 +146,7 @@ def bench_stream_bw(a, s, b, iters: int = 50) -> float:
     ``multisweep_gbps / stream_gbps <= 1`` by construction whenever the
     multisweep's extra compute costs anything."""
     from jax.experimental import pallas as pl
-    from agglomerationmultigrid1d_tpu.ops.pallas.block_kernels import (
+    from agglomerationmultigrid1d.ops.pallas.block_kernels import (
         _halo_specs,
         _pick_tile,
         _x32_scope,
@@ -196,8 +196,8 @@ def bench_sweeps(n_el: int, p: int = 3, iters: int = 100, on_headline=None):
     # fused multisweep, f32 (headline): 3 sweeps per HBM pass — measured FIRST
     # so ``on_headline`` can emit a complete record before the optional sweep
     # variants spend any further compile time
-    from agglomerationmultigrid1d_tpu.ops.pallas import pallas_block_jacobi_multisweep
-    from agglomerationmultigrid1d_tpu.ops.pallas.block_kernels import _pick_tile
+    from agglomerationmultigrid1d.ops.pallas import pallas_block_jacobi_multisweep
+    from agglomerationmultigrid1d.ops.pallas.block_kernels import _pick_tile
 
     a, s, b = build_smoother_problem(n_el, p, jnp.float32)
     tile = _pick_tile(p + 1, n_el, jnp.float32)
@@ -246,7 +246,7 @@ def bench_sweeps(n_el: int, p: int = 3, iters: int = 100, on_headline=None):
 
     # the fused multisweep INSIDE shard_map (1-device mesh on the single chip):
     # the distributed smoother path must show no cliff vs the plain kernel
-    from agglomerationmultigrid1d_tpu.parallel import make_solver_mesh, sharded_multisweep
+    from agglomerationmultigrid1d.parallel import make_solver_mesh, sharded_multisweep
 
     mesh = make_solver_mesh(1)
     steps = jax.jit(
@@ -305,8 +305,8 @@ def _timed_mixed_solve(prob, name: str, cheb: bool, maxiter: int):
     optionally Chebyshev-wrapping every smoother first (reported side by side
     so the Chebyshev gain over the reference's fixed-damping sweeps,
     ``solvers.jl:32-35``, is a measured number, not a README claim)."""
-    from agglomerationmultigrid1d_tpu.models.hierarchy import chebyshev_hierarchy
-    from agglomerationmultigrid1d_tpu.models.solvers import (
+    from agglomerationmultigrid1d.models.hierarchy import chebyshev_hierarchy
+    from agglomerationmultigrid1d.models.solvers import (
         make_low_precision_hierarchy,
         multigrid_mixed,
     )
@@ -331,7 +331,7 @@ def _timed_mixed_solve(prob, name: str, cheb: bool, maxiter: int):
 def bench_mixed_solve(n: int):
     """Mixed-precision full multigrid solve to 1e-10 relative residual, with
     plain damped-Jacobi sweeps and with Chebyshev smoothing."""
-    from agglomerationmultigrid1d_tpu.models.problems import poisson_dg_hierarchy
+    from agglomerationmultigrid1d.models.problems import poisson_dg_hierarchy
 
     n_agg = max(int(np.log2(n // 4)) - 5, 1)  # coarsen to ~64 agglomerates
     t0 = time.time()
@@ -344,8 +344,8 @@ def bench_mixed_solve(n: int):
 
 def _timed_ff_solve(h32, a_ff, b_ff, norm_b, name: str, maxiter: int):
     """Steady-state timing of the fused guarded float-float refinement."""
-    from agglomerationmultigrid1d_tpu.models.solvers import _mixed_loop_ff
-    from agglomerationmultigrid1d_tpu.ops.df64 import FF
+    from agglomerationmultigrid1d.models.solvers import _mixed_loop_ff
+    from agglomerationmultigrid1d.ops.df64 import FF
 
     x0 = FF(jnp.zeros_like(b_ff.hi), jnp.zeros_like(b_ff.hi))
     inv_nb = jnp.asarray(1.0 / norm_b, jnp.float32)
@@ -374,8 +374,8 @@ def bench_flagship_solve(n: int):
     build, ``tests/test_stencil_setup.py::test_inflated_flagship_matches_
     direct_build``).  Coarsens to a 512-block agglomerated coarsest level so
     the stencil chain supports z = 16."""
-    from agglomerationmultigrid1d_tpu.models.stencil_setup import build_xl_problem
-    from agglomerationmultigrid1d_tpu.utils.config import HierarchySpec
+    from agglomerationmultigrid1d.models.stencil_setup import build_xl_problem
+    from agglomerationmultigrid1d.utils.config import HierarchySpec
 
     n_agg = max(int(np.log2(max(n // 4 // 512, 2))) + 1, 1)
     spec = HierarchySpec(
@@ -416,14 +416,14 @@ def bench_xl_solve(n_el: int, p_fine: int = 1, tol: float = 1e-8, on_update=None
     """
     import jax.numpy as jnp
 
-    from agglomerationmultigrid1d_tpu.models.solvers import _progressive_true_eager
-    from agglomerationmultigrid1d_tpu.models.stencil_setup import (
+    from agglomerationmultigrid1d.models.solvers import _progressive_true_eager
+    from agglomerationmultigrid1d.models.stencil_setup import (
         build_xl_problem,
         default_stencil_factor,
     )
-    from agglomerationmultigrid1d_tpu.ops.df64 import FF
-    from agglomerationmultigrid1d_tpu.ops.pallas import pallas_block_jacobi_multisweep
-    from agglomerationmultigrid1d_tpu.utils.config import HierarchySpec
+    from agglomerationmultigrid1d.ops.df64 import FF
+    from agglomerationmultigrid1d.ops.pallas import pallas_block_jacobi_multisweep
+    from agglomerationmultigrid1d.utils.config import HierarchySpec
 
     out = {"xl_dof": n_el * (p_fine + 1)}
 
@@ -489,7 +489,7 @@ def bench_xl_solve(n_el: int, p_fine: int = 1, tol: float = 1e-8, on_update=None
     # star problem bs = 2 (p = 1), and per-nnz the bs = 2 operand mix moves
     # ~4(1 + 2/(3 bs))/4.67 more bytes — GB/s (same byte model as the headline
     # and the stream floor) is the size/block-size-independent comparison
-    from agglomerationmultigrid1d_tpu.ops.pallas.block_kernels import _pick_tile
+    from agglomerationmultigrid1d.ops.pallas.block_kernels import _pick_tile
 
     xl_tile = _pick_tile(p_fine + 1, n_el, jnp.float32)
     xl_bytes = _sweep_pass_bytes(n_el, p_fine + 1, tile=xl_tile)

@@ -13,11 +13,11 @@ _sys.path.insert(0, str(_Path(__file__).resolve().parent.parent))  # repo root
 import numpy as np
 import jax.numpy as jnp
 
-from agglomerationmultigrid1d_tpu.assembly import cg_stiffness_and_rhs
-from agglomerationmultigrid1d_tpu.mesh import BoundaryCondition, create_uniform_mesh, make_cg_mesh
-from agglomerationmultigrid1d_tpu.numerics import evaluate_nodal_basis, gauss_quad
-from agglomerationmultigrid1d_tpu.ops import cg_to_dense
-from agglomerationmultigrid1d_tpu.utils import on_host
+from agglomerationmultigrid1d.assembly import cg_stiffness_and_rhs
+from agglomerationmultigrid1d.mesh import BoundaryCondition, create_uniform_mesh, make_cg_mesh
+from agglomerationmultigrid1d.numerics import evaluate_nodal_basis, gauss_quad
+from agglomerationmultigrid1d.ops import cg_to_dense
+from agglomerationmultigrid1d.utils import on_host
 
 P = 3
 NS = [4, 8, 16, 32, 64]

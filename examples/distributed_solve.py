@@ -13,9 +13,9 @@ _sys.path.insert(0, str(_Path(__file__).resolve().parent.parent))  # repo root
 import jax
 import jax.numpy as jnp
 
-from agglomerationmultigrid1d_tpu.models import multigrid, poisson_dg_hierarchy
-from agglomerationmultigrid1d_tpu.parallel import make_solver_mesh, shard_hierarchy
-from agglomerationmultigrid1d_tpu.parallel.distributed import shard_vector
+from agglomerationmultigrid1d.models import multigrid, poisson_dg_hierarchy
+from agglomerationmultigrid1d.parallel import make_solver_mesh, shard_hierarchy
+from agglomerationmultigrid1d.parallel.distributed import shard_vector
 
 
 def main():

@@ -13,7 +13,7 @@ _sys.path.insert(0, str(_Path(__file__).resolve().parent.parent))  # repo root
 import numpy as np
 import jax.numpy as jnp
 
-from agglomerationmultigrid1d_tpu.models import multigrid, poisson_full_hierarchy
+from agglomerationmultigrid1d.models import multigrid, poisson_full_hierarchy
 
 
 def main():

@@ -15,7 +15,7 @@ import time
 import numpy as np
 import jax.numpy as jnp
 
-from agglomerationmultigrid1d_tpu.models import (
+from agglomerationmultigrid1d.models import (
     make_low_precision_hierarchy,
     multigrid_mixed,
     poisson_dg_hierarchy,

@@ -18,22 +18,22 @@ _sys.path.insert(0, str(_Path(__file__).resolve().parent.parent))  # repo root
 import numpy as np
 import jax.numpy as jnp
 
-from agglomerationmultigrid1d_tpu.assembly import dg_flux_operators, dg_flux_rhs
-from agglomerationmultigrid1d_tpu.mesh import (
+from agglomerationmultigrid1d.assembly import dg_flux_operators, dg_flux_rhs
+from agglomerationmultigrid1d.mesh import (
     BoundaryCondition,
     create_uniform_mesh,
     make_agg_mesh,
     make_dg_mesh,
     make_scattered_agg_mesh,
 )
-from agglomerationmultigrid1d_tpu.models.hierarchy import (
+from agglomerationmultigrid1d.models.hierarchy import (
     build_dg_hierarchy,
     schur_stiffness,
 )
-from agglomerationmultigrid1d_tpu.models.solvers import multigrid
-from agglomerationmultigrid1d_tpu.ops import bt_to_dense
-from agglomerationmultigrid1d_tpu.ops.block_diag import bd_matvec
-from agglomerationmultigrid1d_tpu.ops.block_tridiag import bt_matvec
+from agglomerationmultigrid1d.models.solvers import multigrid
+from agglomerationmultigrid1d.ops import bt_to_dense
+from agglomerationmultigrid1d.ops.block_diag import bd_matvec
+from agglomerationmultigrid1d.ops.block_tridiag import bt_matvec
 
 
 def local_interleave_groups(n: int):

@@ -17,12 +17,12 @@ _sys.path.insert(0, str(_Path(__file__).resolve().parent.parent))  # repo root
 import numpy as np
 import jax.numpy as jnp
 
-from agglomerationmultigrid1d_tpu.assembly import cg_stiffness_and_rhs
-from agglomerationmultigrid1d_tpu.mesh import BoundaryCondition, create_uniform_mesh, make_cg_mesh
-from agglomerationmultigrid1d_tpu.models import iterative_smoother_solve, mode_damping, smoother_spectrum
-from agglomerationmultigrid1d_tpu.models.hierarchy import CgLevel
-from agglomerationmultigrid1d_tpu.smoothers import cg_smoother
-from agglomerationmultigrid1d_tpu.utils import on_host
+from agglomerationmultigrid1d.assembly import cg_stiffness_and_rhs
+from agglomerationmultigrid1d.mesh import BoundaryCondition, create_uniform_mesh, make_cg_mesh
+from agglomerationmultigrid1d.models import iterative_smoother_solve, mode_damping, smoother_spectrum
+from agglomerationmultigrid1d.models.hierarchy import CgLevel
+from agglomerationmultigrid1d.smoothers import cg_smoother
+from agglomerationmultigrid1d.utils import on_host
 
 
 def plot_study(results, out_path):

@@ -32,9 +32,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from agglomerationmultigrid1d_tpu.models import multigrid_true
-from agglomerationmultigrid1d_tpu.models.stencil_setup import build_xl_problem
-from agglomerationmultigrid1d_tpu.utils.config import HierarchySpec
+from agglomerationmultigrid1d.models import multigrid_true
+from agglomerationmultigrid1d.models.stencil_setup import build_xl_problem
+from agglomerationmultigrid1d.utils.config import HierarchySpec
 
 
 def main() -> None:

@@ -1,4 +1,4 @@
-// Native setup kernels for agglomerationmultigrid1d_tpu.
+// Native setup kernels for agglomerationmultigrid1d.
 //
 // The hierarchy setup runs on the host (see utils/host.py); its hot spots are
 // batched tiny-matrix factorizations and block products over millions of

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from agglomerationmultigrid1d_tpu.ops import BlockProlong, CgProlong, SeamProlong
-from agglomerationmultigrid1d_tpu.transfer.interpolation import _seam_to_dense_n
+from agglomerationmultigrid1d.ops import BlockProlong, CgProlong, SeamProlong
+from agglomerationmultigrid1d.transfer.interpolation import _seam_to_dense_n
 
 
 def bp_dense(l: BlockProlong) -> np.ndarray:

@@ -5,15 +5,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from agglomerationmultigrid1d_tpu.assembly import agg_flux_operators, agg_flux_rhs
-from agglomerationmultigrid1d_tpu.mesh import (
+from agglomerationmultigrid1d.assembly import agg_flux_operators, agg_flux_rhs
+from agglomerationmultigrid1d.mesh import (
     BoundaryCondition,
     coarsen_agg_mesh,
     create_uniform_mesh,
     make_agg_mesh,
 )
-from agglomerationmultigrid1d_tpu.numerics import gauss_quad, modal_basis_vals
-from agglomerationmultigrid1d_tpu.ops import (
+from agglomerationmultigrid1d.numerics import gauss_quad, modal_basis_vals
+from agglomerationmultigrid1d.ops import (
     bd_matvec,
     bd_mul_bt,
     bd_to_dense,

@@ -4,10 +4,10 @@
 import numpy as np
 import pytest
 
-from agglomerationmultigrid1d_tpu.assembly import cg_rhs, cg_stiffness, cg_stiffness_and_rhs
-from agglomerationmultigrid1d_tpu.mesh import BoundaryCondition, create_uniform_mesh, make_cg_mesh
-from agglomerationmultigrid1d_tpu.numerics import evaluate_nodal_basis, gauss_quad
-from agglomerationmultigrid1d_tpu.ops import cg_to_dense
+from agglomerationmultigrid1d.assembly import cg_rhs, cg_stiffness, cg_stiffness_and_rhs
+from agglomerationmultigrid1d.mesh import BoundaryCondition, create_uniform_mesh, make_cg_mesh
+from agglomerationmultigrid1d.numerics import evaluate_nodal_basis, gauss_quad
+from agglomerationmultigrid1d.ops import cg_to_dense
 
 
 def solve_cg(n, p, func, bc):

@@ -11,8 +11,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from agglomerationmultigrid1d_tpu.models.hierarchy import DENSE_COARSE_MAX
-from agglomerationmultigrid1d_tpu.ops import (
+from agglomerationmultigrid1d.models.hierarchy import DENSE_COARSE_MAX
+from agglomerationmultigrid1d.ops import (
     BlockTridiag,
     bt_to_dense,
     coarse_solve,
@@ -58,9 +58,9 @@ def test_bcr_garbage_band_entries_ignored():
 def test_large_coarse_dg_hierarchy_solves():
     """A DG-topped hierarchy whose coarsest level exceeds DENSE_COARSE_MAX
     (the old MAX_COARSE_DOF hard error) now builds and converges."""
-    from agglomerationmultigrid1d_tpu.models.problems import poisson_dg_hierarchy
-    from agglomerationmultigrid1d_tpu.models.solvers import multigrid
-    from agglomerationmultigrid1d_tpu.ops.coarse_solve import BTCoarseSolver
+    from agglomerationmultigrid1d.models.problems import poisson_dg_hierarchy
+    from agglomerationmultigrid1d.models.solvers import multigrid
+    from agglomerationmultigrid1d.ops.coarse_solve import BTCoarseSolver
 
     n = 8192  # coarsest = one 4:1 agg level -> 2048 agglomerates = 4096 DoF
     prob = poisson_dg_hierarchy(n=n, max_p=1, n_dg=1, n_agg=1, p_agg=1)

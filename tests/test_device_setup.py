@@ -10,17 +10,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from agglomerationmultigrid1d_tpu.models.device_setup import build_dg_hierarchy_device
-from agglomerationmultigrid1d_tpu.models.hierarchy import (
+from agglomerationmultigrid1d.models.device_setup import build_dg_hierarchy_device
+from agglomerationmultigrid1d.models.hierarchy import (
     chebyshev_hierarchy,
     prepare_fast_smoothers,
     strip_hierarchy,
 )
-from agglomerationmultigrid1d_tpu.models.problems import build_problem
-from agglomerationmultigrid1d_tpu.models.solvers import multigrid_mixed
-from agglomerationmultigrid1d_tpu.smoothers.smoother import ChebyshevSmoother
-from agglomerationmultigrid1d_tpu.utils.config import HierarchySpec
-from agglomerationmultigrid1d_tpu.utils.precision import hierarchy_astype
+from agglomerationmultigrid1d.models.problems import build_problem
+from agglomerationmultigrid1d.models.solvers import multigrid_mixed
+from agglomerationmultigrid1d.smoothers.smoother import ChebyshevSmoother
+from agglomerationmultigrid1d.utils.config import HierarchySpec
+from agglomerationmultigrid1d.utils.precision import hierarchy_astype
 
 
 @pytest.fixture(scope="module")
@@ -68,7 +68,7 @@ def test_device_chain_matches_host_cast(problems):
 
 def test_device_hierarchy_solves_like_host(problems):
     prob = problems
-    from agglomerationmultigrid1d_tpu.models.hierarchy import chebyshev_hierarchy as ch
+    from agglomerationmultigrid1d.models.hierarchy import chebyshev_hierarchy as ch
 
     h64 = ch(prob.hierarchy)
     b = prob.b

@@ -8,8 +8,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from agglomerationmultigrid1d_tpu.ops import df64 as ff
-from agglomerationmultigrid1d_tpu.ops.block_tridiag import BlockTridiag, bt_matvec
+from agglomerationmultigrid1d.ops import df64 as ff
+from agglomerationmultigrid1d.ops.block_tridiag import BlockTridiag, bt_matvec
 
 
 def _rand_bt(rng, bs, n, spread=8.0):
@@ -77,9 +77,9 @@ def test_ff_norm_matches_f64(rng):
 
 def test_ff_cg_defect_matches_f64(rng):
     """Scalar-banded (CG) float-float defect against the f64 reference."""
-    from agglomerationmultigrid1d_tpu.assembly import cg_stiffness
-    from agglomerationmultigrid1d_tpu.mesh import BoundaryCondition, create_uniform_mesh, make_cg_mesh
-    from agglomerationmultigrid1d_tpu.ops.cg_operator import cg_matvec
+    from agglomerationmultigrid1d.assembly import cg_stiffness
+    from agglomerationmultigrid1d.mesh import BoundaryCondition, create_uniform_mesh, make_cg_mesh
+    from agglomerationmultigrid1d.ops.cg_operator import cg_matvec
 
     mesh = create_uniform_mesh(64, 0.0, 1.0)
     cg = make_cg_mesh(mesh, 4)
@@ -97,8 +97,8 @@ def test_ff_cg_defect_matches_f64(rng):
 
 def test_mixed_solver_cg_topped_uses_ff_path():
     """The flagship CG-topped hierarchy converges through the fused ff loop."""
-    from agglomerationmultigrid1d_tpu.models.problems import poisson_full_hierarchy
-    from agglomerationmultigrid1d_tpu.models.solvers import (
+    from agglomerationmultigrid1d.models.problems import poisson_full_hierarchy
+    from agglomerationmultigrid1d.models.solvers import (
         make_low_precision_hierarchy,
         multigrid_mixed,
     )
@@ -117,11 +117,11 @@ def test_progressive_precision_matches_f64_iterations():
     """Progressive-precision V-cycles (f32 smoothers, float-float residuals/
     transfers) must converge with the same cycle count as all-f64 multigrid,
     including on the ill-conditioned CG-topped flagship configuration."""
-    from agglomerationmultigrid1d_tpu.models.problems import (
+    from agglomerationmultigrid1d.models.problems import (
         poisson_dg_hierarchy,
         poisson_full_hierarchy,
     )
-    from agglomerationmultigrid1d_tpu.models.solvers import (
+    from agglomerationmultigrid1d.models.solvers import (
         make_low_precision_hierarchy,
         multigrid,
         multigrid_progressive,
@@ -146,9 +146,9 @@ def test_progressive_precision_matches_f64_iterations():
 def test_ff_stencil_defect_chunked_matches_oneshot(rng):
     """The chunked interior EFT pass (used above _FF_DEFECT_CHUNK columns to
     bound fused-temporary memory) is bit-identical to the one-shot pass."""
-    from agglomerationmultigrid1d_tpu.ops import df64
-    from agglomerationmultigrid1d_tpu.ops.block_tridiag import BlockTridiag
-    from agglomerationmultigrid1d_tpu.ops.df64 import FF, BTFFStencil
+    from agglomerationmultigrid1d.ops import df64
+    from agglomerationmultigrid1d.ops.block_tridiag import BlockTridiag
+    from agglomerationmultigrid1d.ops.df64 import FF, BTFFStencil
 
     bs, bw, n = 2, 4, 1024
 
@@ -194,9 +194,9 @@ def test_ff_stencil_defect_chunked_matches_oneshot(rng):
 def test_f64_stencil_defect_matches_numpy(rng):
     """The true-f64 stencil defect (progressive outer loop above the ff
     accuracy floor) equals a dense NumPy f64 defect to f64 roundoff."""
-    from agglomerationmultigrid1d_tpu.ops import df64
-    from agglomerationmultigrid1d_tpu.ops.block_tridiag import BlockTridiag
-    from agglomerationmultigrid1d_tpu.ops.df64 import BTFFStencil, f64_bt_defect_stencil
+    from agglomerationmultigrid1d.ops import df64
+    from agglomerationmultigrid1d.ops.block_tridiag import BlockTridiag
+    from agglomerationmultigrid1d.ops.df64 import BTFFStencil, f64_bt_defect_stencil
 
     bs, bw, n = 2, 4, 512
 
@@ -216,7 +216,7 @@ def test_f64_stencil_defect_matches_numpy(rng):
     )
     x64 = jnp.asarray(rng.standard_normal((bs, n)))
     b64 = jnp.asarray(rng.standard_normal((bs, n)))
-    from agglomerationmultigrid1d_tpu.ops.df64 import ff_join, ff_split
+    from agglomerationmultigrid1d.ops.df64 import ff_join, ff_split
 
     r_pair = f64_bt_defect_stencil(st, ff_split(x64), ff_split(b64))
     r = np.asarray(ff_join(r_pair))

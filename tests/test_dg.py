@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from agglomerationmultigrid1d_tpu.assembly import dg_flux_operators, dg_flux_rhs
-from agglomerationmultigrid1d_tpu.mesh import BoundaryCondition, create_uniform_mesh, make_dg_mesh
-from agglomerationmultigrid1d_tpu.numerics import evaluate_nodal_basis, gauss_quad
-from agglomerationmultigrid1d_tpu.ops import (
+from agglomerationmultigrid1d.assembly import dg_flux_operators, dg_flux_rhs
+from agglomerationmultigrid1d.mesh import BoundaryCondition, create_uniform_mesh, make_dg_mesh
+from agglomerationmultigrid1d.numerics import evaluate_nodal_basis, gauss_quad
+from agglomerationmultigrid1d.ops import (
     BlockDiag,
     bd_mul_bt,
     bt_matvec,
@@ -26,7 +26,7 @@ def dg_solve(n, p, func, bc, c_dir):
     f, r = dg_flux_rhs(dg, func, bc, c_dir)
     minv = dg.mass_inv
     a = bt_sub(c, bt_mul_bt(d, bd_mul_bt(minv, g)))
-    from agglomerationmultigrid1d_tpu.ops import bd_matvec
+    from agglomerationmultigrid1d.ops import bd_matvec
 
     b = f - bt_matvec(d, bd_matvec(minv, r))
     a_dense = np.asarray(bt_to_dense(a))
@@ -72,7 +72,7 @@ def test_dg_gradient_is_weak_derivative():
     g, _, _ = dg_flux_operators(dg, bc, 0.0)
     x_nodes = jnp.asarray(dg.node_x())  # (bs, n)
     u = x_nodes  # u = x
-    from agglomerationmultigrid1d_tpu.ops import bd_matvec
+    from agglomerationmultigrid1d.ops import bd_matvec
 
     q = bd_matvec(dg.mass_inv, bt_matvec(g, u))
     # G is the weak gradient in the sign convention of the first-order system for
@@ -112,7 +112,7 @@ def test_dg_schur_stiffness_spd_like():
     mesh = create_uniform_mesh(8, 0.0, 1.0)
     dg = make_dg_mesh(mesh, 2)
     g, d, c = dg_flux_operators(dg, bc, 8.0)
-    from agglomerationmultigrid1d_tpu.ops import bt_distance2_residual
+    from agglomerationmultigrid1d.ops import bt_distance2_residual
 
     mg = bd_mul_bt(dg.mass_inv, g)
     assert float(bt_distance2_residual(d, mg)) == 0.0

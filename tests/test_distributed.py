@@ -7,18 +7,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from agglomerationmultigrid1d_tpu.models.problems import (
+from agglomerationmultigrid1d.models.problems import (
     poisson_dg_hierarchy,
     poisson_full_hierarchy,
 )
-from agglomerationmultigrid1d_tpu.models.solvers import multigrid, v_cycle
-from agglomerationmultigrid1d_tpu.ops.shifts import shift
-from agglomerationmultigrid1d_tpu.parallel import (
+from agglomerationmultigrid1d.models.solvers import multigrid, v_cycle
+from agglomerationmultigrid1d.ops.shifts import shift
+from agglomerationmultigrid1d.parallel import (
     halo_shift,
     make_solver_mesh,
     shard_hierarchy,
 )
-from agglomerationmultigrid1d_tpu.parallel.distributed import (
+from agglomerationmultigrid1d.parallel.distributed import (
     shard_vector,
     unshard_vector,
 )
@@ -105,12 +105,12 @@ def test_sharded_mixed_and_progressive_match_single():
     float-float defects) and reproduce the single-device solve — the north-star
     configuration of fused sharded sweeps *plus* ff defect correction in one
     solve."""
-    from agglomerationmultigrid1d_tpu.models.solvers import (
+    from agglomerationmultigrid1d.models.solvers import (
         make_low_precision_hierarchy,
         multigrid_mixed,
         multigrid_progressive,
     )
-    from agglomerationmultigrid1d_tpu.parallel import fused_shard_spec
+    from agglomerationmultigrid1d.parallel import fused_shard_spec
 
     prob = poisson_dg_hierarchy(n=128, max_p=4, n_dg=3)
     h32_ref = make_low_precision_hierarchy(prob.hierarchy)

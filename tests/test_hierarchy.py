@@ -7,13 +7,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from agglomerationmultigrid1d_tpu.models.problems import (
+from agglomerationmultigrid1d.models.problems import (
     poisson_cg_hierarchy,
     poisson_dg_cg_hierarchy,
     poisson_dg_hierarchy,
     poisson_full_hierarchy,
 )
-from agglomerationmultigrid1d_tpu.models.solvers import (
+from agglomerationmultigrid1d.models.solvers import (
     mg_preconditioner,
     multigrid,
     v_cycle,

@@ -17,14 +17,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from agglomerationmultigrid1d_tpu.models.solvers import _mixed_loop_ff
-from agglomerationmultigrid1d_tpu.models.stencil_setup import build_xl_problem
-from agglomerationmultigrid1d_tpu.ops.df64 import FF
-from agglomerationmultigrid1d_tpu.parallel.multihost import (
+from agglomerationmultigrid1d.models.solvers import _mixed_loop_ff
+from agglomerationmultigrid1d.models.stencil_setup import build_xl_problem
+from agglomerationmultigrid1d.ops.df64 import FF
+from agglomerationmultigrid1d.parallel.multihost import (
     build_sharded_xl_problem,
     multihost_mesh,
 )
-from agglomerationmultigrid1d_tpu.utils.config import HierarchySpec
+from agglomerationmultigrid1d.utils.config import HierarchySpec
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -152,7 +152,7 @@ def test_local_shard_build_slim_fine():
     level + broadcast-stencil ff defect) under the shard-local builder:
     identical arrays to the single-controller slim build and identical solve
     behavior on the 8-virtual-device mesh."""
-    from agglomerationmultigrid1d_tpu.ops.df64 import BTFFStencil
+    from agglomerationmultigrid1d.ops.df64 import BTFFStencil
 
     n = 4096
     spec = _dg_spec(n)
@@ -196,15 +196,15 @@ pid, nproc, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-from agglomerationmultigrid1d_tpu.parallel.multihost import (
+from agglomerationmultigrid1d.parallel.multihost import (
     build_sharded_xl_problem, initialize, multihost_mesh)
 initialize(f"localhost:{port}", nproc, pid, cpu_collectives="gloo")
 assert jax.process_count() == nproc, jax.process_count()
 
 import jax.numpy as jnp, numpy as np
-from agglomerationmultigrid1d_tpu.models.solvers import _mixed_loop_ff
-from agglomerationmultigrid1d_tpu.ops.df64 import FF
-from agglomerationmultigrid1d_tpu.utils.config import HierarchySpec
+from agglomerationmultigrid1d.models.solvers import _mixed_loop_ff
+from agglomerationmultigrid1d.ops.df64 import FF
+from agglomerationmultigrid1d.utils.config import HierarchySpec
 
 n = 4096
 spec = HierarchySpec(cg_orders=(), dg_orders=(1,), n_agg_levels=4, p_agg=1,

@@ -10,21 +10,21 @@ import pytest
 
 from helpers import bp_dense
 
-from agglomerationmultigrid1d_tpu.assembly import (
+from agglomerationmultigrid1d.assembly import (
     agg_flux_operators,
     agg_flux_rhs,
     cg_stiffness_and_rhs,
     dg_flux_operators,
     dg_flux_rhs,
 )
-from agglomerationmultigrid1d_tpu.mesh import (
+from agglomerationmultigrid1d.mesh import (
     BoundaryCondition,
     create_graded_mesh,
     make_agg_mesh,
     make_cg_mesh,
     make_dg_mesh,
 )
-from agglomerationmultigrid1d_tpu.ops import (
+from agglomerationmultigrid1d.ops import (
     bd_matvec,
     bd_mul_bt,
     bd_to_dense,
@@ -35,7 +35,7 @@ from agglomerationmultigrid1d_tpu.ops import (
     bt_to_dense,
     cg_to_dense,
 )
-from agglomerationmultigrid1d_tpu.transfer import aggdg_dg_interpolation
+from agglomerationmultigrid1d.transfer import aggdg_dg_interpolation
 
 BC = BoundaryCondition(("neu", -np.sin(0.0)), ("dir", np.cos(1.0)))
 
@@ -45,7 +45,7 @@ def _cg_solve_l2_error(mesh, p):
     a, b = cg_stiffness_and_rhs(cg, jnp.cos, BC)
     u = np.linalg.solve(np.asarray(cg_to_dense(a)), np.asarray(b))
     # L2 error by quadrature per element
-    from agglomerationmultigrid1d_tpu.numerics import evaluate_nodal_basis, gauss_quad
+    from agglomerationmultigrid1d.numerics import evaluate_nodal_basis, gauss_quad
 
     qx, qw = gauss_quad(2 * p + 2)
     ref = cg.ref
@@ -69,7 +69,7 @@ def _dg_solve(dg, c_dir):
 
 
 def _dg_l2_error(dg, u):
-    from agglomerationmultigrid1d_tpu.numerics import evaluate_nodal_basis, gauss_quad
+    from agglomerationmultigrid1d.numerics import evaluate_nodal_basis, gauss_quad
 
     qx, qw = gauss_quad(2 * dg.p + 2)
     ref = dg.ref
@@ -126,14 +126,14 @@ def test_agg_galerkin_consistency_on_graded_mesh():
 
 def test_full_hierarchy_on_graded_mesh():
     """The flagship CG+agg hierarchy solves to 1e-10 on a graded mesh."""
-    from agglomerationmultigrid1d_tpu.models.problems import poisson_full_hierarchy
-    from agglomerationmultigrid1d_tpu.models.solvers import multigrid
+    from agglomerationmultigrid1d.models.problems import poisson_full_hierarchy
+    from agglomerationmultigrid1d.models.solvers import multigrid
 
     mesh = create_graded_mesh(64, 0.0, 1.0, ratio=4.0)
     prob = poisson_full_hierarchy(n=64, mesh=mesh) if False else None
     # build_problem takes the mesh directly
-    from agglomerationmultigrid1d_tpu.models.problems import build_problem
-    from agglomerationmultigrid1d_tpu.utils.config import HierarchySpec
+    from agglomerationmultigrid1d.models.problems import build_problem
+    from agglomerationmultigrid1d.utils.config import HierarchySpec
 
     spec = HierarchySpec(
         cg_orders=(8, 4, 2, 1), n_agg_levels=5, p_agg=1, c_dir=1000.0 * 64
@@ -147,9 +147,9 @@ def test_full_hierarchy_on_graded_mesh():
 
 
 def test_dg_hierarchy_on_graded_mesh():
-    from agglomerationmultigrid1d_tpu.models.problems import build_problem
-    from agglomerationmultigrid1d_tpu.models.solvers import multigrid
-    from agglomerationmultigrid1d_tpu.utils.config import HierarchySpec
+    from agglomerationmultigrid1d.models.problems import build_problem
+    from agglomerationmultigrid1d.models.solvers import multigrid
+    from agglomerationmultigrid1d.utils.config import HierarchySpec
 
     mesh = create_graded_mesh(64, 0.0, 1.0, ratio=4.0)
     spec = HierarchySpec(cg_orders=(), dg_orders=(4, 2, 1), c_dir=1000.0 * 64)
@@ -187,7 +187,7 @@ def test_switch_flip_swaps_g_and_d_interior():
     g0, dd0, _ = dg_flux_operators(d0, bc_nn, 0.0)
     g1, dd1, _ = dg_flux_operators(d1, bc_nn, 0.0)
     # interior-only parts: subtract the shared volume + Neumann boundary terms
-    from agglomerationmultigrid1d_tpu.assembly.dg_assembly import _volume_ref
+    from agglomerationmultigrid1d.assembly.dg_assembly import _volume_ref
 
     vol = np.zeros((p + 1, p + 1, 8))
     vol += np.asarray(_volume_ref(d0))[:, :, None]
@@ -256,7 +256,7 @@ def test_switch_mixed_entrywise():
     du = np.asarray(d.upper)
     vol = np.asarray(
         __import__(
-            "agglomerationmultigrid1d_tpu.assembly.dg_assembly", fromlist=["_volume_ref"]
+            "agglomerationmultigrid1d.assembly.dg_assembly", fromlist=["_volume_ref"]
         )._volume_ref(make_dg_mesh(mesh, p))
     )
     for v in range(n - 1):

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from agglomerationmultigrid1d_tpu.numerics import (
+from agglomerationmultigrid1d.numerics import (
     evaluate_nodal_basis,
     evaluate_nodal_basis_and_deriv,
     gauss_quad,

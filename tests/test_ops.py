@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from agglomerationmultigrid1d_tpu.ops import (
+from agglomerationmultigrid1d.ops import (
     BlockDiag,
     BlockProlong,
     BlockTridiag,

@@ -6,12 +6,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from agglomerationmultigrid1d_tpu.ops import BlockTridiag, bt_matvec
-from agglomerationmultigrid1d_tpu.ops.pallas import (
+from agglomerationmultigrid1d.ops import BlockTridiag, bt_matvec
+from agglomerationmultigrid1d.ops.pallas import (
     pallas_block_jacobi_sweep,
     pallas_bt_matvec,
 )
-from agglomerationmultigrid1d_tpu.smoothers.smoother import (
+from agglomerationmultigrid1d.smoothers.smoother import (
     BlockJacobiSmoother,
     apply_smoother,
 )
@@ -63,8 +63,8 @@ def test_pallas_fallback_small_n(rng):
 def test_mixed_precision_multigrid_converges_to_f64_tol():
     """f32 inner V-cycle + f64 defect correction reaches 1e-10 relative residual
     and matches the all-f64 solve."""
-    from agglomerationmultigrid1d_tpu.models.problems import poisson_dg_hierarchy
-    from agglomerationmultigrid1d_tpu.models.solvers import (
+    from agglomerationmultigrid1d.models.problems import poisson_dg_hierarchy
+    from agglomerationmultigrid1d.models.solvers import (
         make_low_precision_hierarchy,
         multigrid,
         multigrid_mixed,
@@ -84,7 +84,7 @@ def test_mixed_precision_multigrid_converges_to_f64_tol():
     # penalty-conditioned A (CDir = 1000 n) two residual-stopped solutions may
     # legitimately differ by ~cond(A) * tol * ||x||.  Check both are equally
     # good solutions of the system rather than bitwise-near each other.
-    from agglomerationmultigrid1d_tpu.models.solvers import _flatten_level_vec, level_matvec
+    from agglomerationmultigrid1d.models.solvers import _flatten_level_vec, level_matvec
 
     def true_rel_defect(x):
         return float(
@@ -106,8 +106,8 @@ def test_pallas_multisweep_mform_matches_xla(rng):
     """The M-form temporally-blocked multisweep (real pallas path, interpreter
     mode) vs plain damped block-Jacobi sweeps — with and without the
     precomputed ml/mu streams, and with the fused restrict-side residual."""
-    from agglomerationmultigrid1d_tpu.ops.block_tridiag import block_mul
-    from agglomerationmultigrid1d_tpu.ops.pallas import (
+    from agglomerationmultigrid1d.ops.block_tridiag import block_mul
+    from agglomerationmultigrid1d.ops.pallas import (
         pallas_block_jacobi_multisweep,
         pallas_block_jacobi_multisweep_residual,
     )
@@ -145,7 +145,7 @@ def test_pallas_multisweep_mform_matches_xla(rng):
 def test_pallas_chebyshev_multisweep_matches_xla(rng):
     """Fused Chebyshev kernel (real pallas path at n >= 2*tile, interpreter
     mode) vs the plain XLA recurrence."""
-    from agglomerationmultigrid1d_tpu.ops.pallas import (
+    from agglomerationmultigrid1d.ops.pallas import (
         chebyshev_coefficients,
         pallas_chebyshev_multisweep,
     )
@@ -185,9 +185,9 @@ def test_pallas_ff_stencil_mid_defect_matches_xla(rng):
     loop) == the XLA interior pass, to the pair-sum's f64-class accuracy (the
     CPU XLA path carries optimization-barrier fences the kernel does not, so
     lo tails may differ by reassociation; the hi+lo value is the invariant)."""
-    from agglomerationmultigrid1d_tpu.ops import df64
-    from agglomerationmultigrid1d_tpu.ops.df64 import FF, BTFFStencil
-    from agglomerationmultigrid1d_tpu.ops.pallas import pallas_ff_stencil_mid_defect
+    from agglomerationmultigrid1d.ops import df64
+    from agglomerationmultigrid1d.ops.df64 import FF, BTFFStencil
+    from agglomerationmultigrid1d.ops.pallas import pallas_ff_stencil_mid_defect
 
     bs, n = 2, 16384  # tile = 8192 here; need n >= 2 * tile
 

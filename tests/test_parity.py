@@ -19,16 +19,16 @@ import pytest
 from helpers import bp_dense, cgp_dense, rbp_dense, seam_dense
 from oracle import build_oracle_hierarchy, oracle_multigrid
 
-from agglomerationmultigrid1d_tpu.models.hierarchy import BlockLevel, CgLevel
-from agglomerationmultigrid1d_tpu.models.problems import (
+from agglomerationmultigrid1d.models.hierarchy import BlockLevel, CgLevel
+from agglomerationmultigrid1d.models.problems import (
     poisson_cg_hierarchy,
     poisson_dg_cg_hierarchy,
     poisson_dg_hierarchy,
     poisson_full_hierarchy,
 )
-from agglomerationmultigrid1d_tpu.models.solvers import multigrid
-from agglomerationmultigrid1d_tpu.ops import bt_to_dense, cg_to_dense
-from agglomerationmultigrid1d_tpu.ops.transfer_ops import (
+from agglomerationmultigrid1d.models.solvers import multigrid
+from agglomerationmultigrid1d.ops import bt_to_dense, cg_to_dense
+from agglomerationmultigrid1d.ops.transfer_ops import (
     BlockProlong,
     CgProlong,
     RaggedBlockProlong,
@@ -48,7 +48,7 @@ def _mass_dense(mass_inv) -> np.ndarray:
 
 
 def _transfer_dense(tr, fine_level) -> np.ndarray:
-    from agglomerationmultigrid1d_tpu.transfer.scattered_transfer import (
+    from agglomerationmultigrid1d.transfer.scattered_transfer import (
         ScatteredProlong,
     )
 
@@ -72,7 +72,7 @@ def _oracle_spec(h) -> tuple[list, list]:
     """Walk a framework hierarchy, emitting the oracle's level spec with only
     discretization inputs (assembled seam G/D/C; deeper block levels get no
     operators — the oracle Galerkin-projects them itself)."""
-    from agglomerationmultigrid1d_tpu.smoothers.smoother import SchwarzSmoother
+    from agglomerationmultigrid1d.smoothers.smoother import SchwarzSmoother
 
     def _cg_kind(lv):
         if isinstance(lv.smoother, SchwarzSmoother):
@@ -169,7 +169,7 @@ def test_parity_scattered_hierarchy():
     against the dense oracle, which receives only the dense scattered transfer
     and redoes the Galerkin chain itself (cf. the reference's explicit
     element-list constructor, ``agglomerated_dg_mesh.jl:400-495``)."""
-    from agglomerationmultigrid1d_tpu.models.problems import (
+    from agglomerationmultigrid1d.models.problems import (
         poisson_scattered_hierarchy,
     )
 
@@ -208,7 +208,7 @@ def test_parity_full_hierarchy():
     # pin the flagship residual history against the stored fixture (loose
     # enough for cross-XLA-version reduction-order noise, tight enough that
     # any algorithmic change — smoother, transfer, coarse solve — trips it)
-    from agglomerationmultigrid1d_tpu.models.solvers import multigrid
+    from agglomerationmultigrid1d.models.solvers import multigrid
 
     res = multigrid(prob.hierarchy, jnp.zeros_like(prob.b), prob.b, 200, 1e-10)
     it = int(res.iterations)

@@ -14,11 +14,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from agglomerationmultigrid1d_tpu.assembly.dg_assembly import dg_flux_operators, dg_flux_rhs
-from agglomerationmultigrid1d_tpu.mesh import BoundaryCondition, create_uniform_mesh, make_dg_mesh
-from agglomerationmultigrid1d_tpu.models.hierarchy import build_dg_hierarchy, schur_stiffness
-from agglomerationmultigrid1d_tpu.models.solvers import multigrid
-from agglomerationmultigrid1d_tpu.ops import (
+from agglomerationmultigrid1d.assembly.dg_assembly import dg_flux_operators, dg_flux_rhs
+from agglomerationmultigrid1d.mesh import BoundaryCondition, create_uniform_mesh, make_dg_mesh
+from agglomerationmultigrid1d.models.hierarchy import build_dg_hierarchy, schur_stiffness
+from agglomerationmultigrid1d.models.solvers import multigrid
+from agglomerationmultigrid1d.ops import (
     BlockTridiag,
     bd_matvec,
     bp5_matvec,
@@ -118,7 +118,7 @@ def test_trapped_switch_schur_matches_dense_and_is_singular():
     C - D M^-1 G including the distance-2 blocks (which the tridiagonal
     product silently drops) — and that exact operator is genuinely singular,
     which is precisely why trapping switches are rejected by default."""
-    from agglomerationmultigrid1d_tpu.ops import bd_to_dense
+    from agglomerationmultigrid1d.ops import bd_to_dense
 
     n, p = 16, 3
     mesh = create_uniform_mesh(n, 0.0, 1.0)
@@ -141,7 +141,7 @@ def test_trapped_switch_schur_matches_dense_and_is_singular():
 
 
 def test_mixed_switch_hierarchy_rejects_truncated_a():
-    from agglomerationmultigrid1d_tpu.ops import bd_mul_bt, bt_mul_bt, bt_sub
+    from agglomerationmultigrid1d.ops import bd_mul_bt, bt_mul_bt, bt_sub
 
     mesh, dg, bc, c_dir, g, d, c = _mixed_problem()
     a_truncated = bt_sub(c, bt_mul_bt(d, bd_mul_bt(dg.mass_inv, g)))
@@ -156,8 +156,8 @@ def test_agg_explicit_switch_entrywise():
     operators equal the default stencil at True vertices and the uniformly
     flipped level's stencil at False vertices (rank-1 outer products of the
     boundary basis values)."""
-    from agglomerationmultigrid1d_tpu.assembly.agg_assembly import agg_flux_operators
-    from agglomerationmultigrid1d_tpu.mesh import make_agg_mesh
+    from agglomerationmultigrid1d.assembly.agg_assembly import agg_flux_operators
+    from agglomerationmultigrid1d.mesh import make_agg_mesh
 
     n, m = 16, 8
     mesh = create_uniform_mesh(n, 0.0, 1.0)
@@ -197,10 +197,10 @@ def test_agg_explicit_switch_entrywise():
 def test_agg_mixed_switch_solves_to_direct():
     """A CG -> agg hierarchy whose agg seam has a (non-trapping) mixed switch
     solves to the dense direct solution of its own exact operator."""
-    from agglomerationmultigrid1d_tpu.assembly.cg_assembly import cg_stiffness_and_rhs
-    from agglomerationmultigrid1d_tpu.mesh import make_agg_mesh, make_cg_mesh
-    from agglomerationmultigrid1d_tpu.models.hierarchy import build_hierarchy
-    from agglomerationmultigrid1d_tpu.models.problems import default_model_problem
+    from agglomerationmultigrid1d.assembly.cg_assembly import cg_stiffness_and_rhs
+    from agglomerationmultigrid1d.mesh import make_agg_mesh, make_cg_mesh
+    from agglomerationmultigrid1d.models.hierarchy import build_hierarchy
+    from agglomerationmultigrid1d.models.problems import default_model_problem
 
     n = 32
     mesh = create_uniform_mesh(n, 0.0, 1.0)
@@ -212,7 +212,7 @@ def test_agg_mixed_switch_solves_to_direct():
     agg = make_agg_mesh(1, mesh, 4, switch=sw, tables=False)
     a, b = cg_stiffness_and_rhs(cg, func, bc)
     h = build_hierarchy([cg, agg], bc, a, c_dir=1000.0 * n)
-    from agglomerationmultigrid1d_tpu.ops import BlockPenta
+    from agglomerationmultigrid1d.ops import BlockPenta
 
     assert isinstance(h.levels[1].a, BlockPenta)
     res = multigrid(h, jnp.zeros_like(b), b, 100, 1e-10, compute_error=False)
@@ -224,7 +224,7 @@ def test_agg_mixed_switch_solves_to_direct():
 def test_penta_ff_defect_matches_f64():
     """Float-float pentadiagonal defect (ops/df64.py::ff_bp5_defect) is
     ~2^-48-accurate against the f64 reference."""
-    from agglomerationmultigrid1d_tpu.ops import df64 as ff
+    from agglomerationmultigrid1d.ops import df64 as ff
 
     p = bt_mul_bt_full(_random_bt(4, 300, 11), _random_bt(4, 300, 12))
     rng = np.random.default_rng(13)
@@ -243,13 +243,13 @@ def test_penta_ff_defect_matches_f64():
 def test_mixed_switch_progressive_and_mixed_solvers():
     """The float-float mixed and progressive solvers handle a pentadiagonal
     (mixed-switch) fine level end-to-end."""
-    from agglomerationmultigrid1d_tpu.models.problems import default_model_problem
-    from agglomerationmultigrid1d_tpu.models.solvers import (
+    from agglomerationmultigrid1d.models.problems import default_model_problem
+    from agglomerationmultigrid1d.models.solvers import (
         make_low_precision_hierarchy,
         multigrid_mixed,
         multigrid_progressive,
     )
-    from agglomerationmultigrid1d_tpu.ops import bt_matvec
+    from agglomerationmultigrid1d.ops import bt_matvec
 
     mesh, dg, bc, c_dir, g, d, c = _mixed_problem()
     a = schur_stiffness(g, d, c, dg.mass_inv, mixed_switch=True)
@@ -275,11 +275,11 @@ def test_mixed_switch_hierarchy_solves_to_direct():
     meshes = [dg, make_dg_mesh(mesh, 1, switch=dg.u_hat_left)]
     h = build_dg_hierarchy(meshes, a, g, d, c)
 
-    from agglomerationmultigrid1d_tpu.models.problems import default_model_problem
+    from agglomerationmultigrid1d.models.problems import default_model_problem
 
     func, _, _ = default_model_problem()
     f, r = dg_flux_rhs(dg, func, bc, c_dir)
-    from agglomerationmultigrid1d_tpu.ops import bt_matvec
+    from agglomerationmultigrid1d.ops import bt_matvec
 
     b = f - bt_matvec(d, bd_matvec(dg.mass_inv, r))
 

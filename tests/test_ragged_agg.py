@@ -13,8 +13,8 @@ import pytest
 
 from helpers import rbp_dense, seam_dense
 
-from agglomerationmultigrid1d_tpu.assembly import agg_flux_operators, agg_flux_rhs
-from agglomerationmultigrid1d_tpu.mesh import (
+from agglomerationmultigrid1d.assembly import agg_flux_operators, agg_flux_rhs
+from agglomerationmultigrid1d.mesh import (
     BoundaryCondition,
     coarsen_agg_mesh,
     create_uniform_mesh,
@@ -22,9 +22,9 @@ from agglomerationmultigrid1d_tpu.mesh import (
     make_cg_mesh,
     make_dg_mesh,
 )
-from agglomerationmultigrid1d_tpu.assembly import dg_flux_operators
-from agglomerationmultigrid1d_tpu.numerics import gauss_quad, modal_basis_vals
-from agglomerationmultigrid1d_tpu.ops import (
+from agglomerationmultigrid1d.assembly import dg_flux_operators
+from agglomerationmultigrid1d.numerics import gauss_quad, modal_basis_vals
+from agglomerationmultigrid1d.ops import (
     bd_matvec,
     bd_mul_bt,
     bd_to_dense,
@@ -33,18 +33,18 @@ from agglomerationmultigrid1d_tpu.ops import (
     bt_sub,
     bt_to_dense,
 )
-from agglomerationmultigrid1d_tpu.ops.transfer_ops import (
+from agglomerationmultigrid1d.ops.transfer_ops import (
     RaggedBlockProlong,
     rbp_galerkin,
     rbp_prolong,
     rbp_restrict,
 )
-from agglomerationmultigrid1d_tpu.transfer import (
+from agglomerationmultigrid1d.transfer import (
     aggdg_aggdg_interpolation,
     aggdg_cg_interpolation,
     aggdg_dg_interpolation,
 )
-from agglomerationmultigrid1d_tpu.ops import seam_prolong, seam_restrict
+from agglomerationmultigrid1d.ops import seam_prolong, seam_restrict
 
 BC = BoundaryCondition(("neu", -np.sin(0.0)), ("dir", np.cos(1.0)))
 
@@ -105,7 +105,7 @@ def test_ragged_galerkin_matches_dense_triple_product(rng):
     dg = make_dg_mesh(mesh, 1)
     agg = make_agg_mesh(1, mesh, partition=[3, 4, 5])
     l = aggdg_dg_interpolation(agg, dg)
-    from agglomerationmultigrid1d_tpu.ops.block_tridiag import BlockTridiag
+    from agglomerationmultigrid1d.ops.block_tridiag import BlockTridiag
 
     bs, n = 2, 12
     lo = rng.standard_normal((bs, bs, n))
@@ -221,8 +221,8 @@ def test_ragged_convergence_order():
 def test_non_power_of_two_full_hierarchy():
     """A full CG+agg hierarchy on n = 96 (not a power of two) builds via
     near-uniform ragged partitions and converges h-independently."""
-    from agglomerationmultigrid1d_tpu.models.problems import poisson_full_hierarchy
-    from agglomerationmultigrid1d_tpu.models.solvers import multigrid
+    from agglomerationmultigrid1d.models.problems import poisson_full_hierarchy
+    from agglomerationmultigrid1d.models.solvers import multigrid
 
     prob = poisson_full_hierarchy(n=96, n_agg=5)
     res = multigrid(prob.hierarchy, jnp.zeros_like(prob.b), prob.b, 50, 1e-10)
@@ -233,8 +233,8 @@ def test_non_power_of_two_full_hierarchy():
 
 
 def test_non_power_of_two_dg_agg_hierarchy():
-    from agglomerationmultigrid1d_tpu.models.problems import poisson_dg_hierarchy
-    from agglomerationmultigrid1d_tpu.models.solvers import multigrid
+    from agglomerationmultigrid1d.models.problems import poisson_dg_hierarchy
+    from agglomerationmultigrid1d.models.solvers import multigrid
 
     prob = poisson_dg_hierarchy(n=96, max_p=4, n_dg=3, n_agg=4)
     res = multigrid(prob.hierarchy, jnp.zeros_like(prob.b), prob.b, 80, 1e-10)

@@ -22,7 +22,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from agglomerationmultigrid1d_tpu.assembly import (
+from agglomerationmultigrid1d.assembly import (
     agg_flux_operators,
     agg_flux_rhs,
     dg_flux_operators,
@@ -30,7 +30,7 @@ from agglomerationmultigrid1d_tpu.assembly import (
     scattered_flux_rhs,
     scattered_schur,
 )
-from agglomerationmultigrid1d_tpu.mesh import (
+from agglomerationmultigrid1d.mesh import (
     BoundaryCondition,
     create_uniform_mesh,
     make_agg_mesh,
@@ -38,12 +38,12 @@ from agglomerationmultigrid1d_tpu.mesh import (
     make_scattered_agg_mesh,
     coarsen_scattered_agg_mesh,
 )
-from agglomerationmultigrid1d_tpu.models.hierarchy import (
+from agglomerationmultigrid1d.models.hierarchy import (
     build_dg_hierarchy,
     schur_stiffness,
 )
-from agglomerationmultigrid1d_tpu.models.solvers import multigrid
-from agglomerationmultigrid1d_tpu.ops import (
+from agglomerationmultigrid1d.models.solvers import multigrid
+from agglomerationmultigrid1d.ops import (
     bcoo_add,
     bcoo_diag_blocks,
     bcoo_from_bt,
@@ -54,8 +54,8 @@ from agglomerationmultigrid1d_tpu.ops import (
     bcoo_to_dense,
     bt_to_dense,
 )
-from agglomerationmultigrid1d_tpu.ops.block_diag import BlockDiag
-from agglomerationmultigrid1d_tpu.transfer import (
+from agglomerationmultigrid1d.ops.block_diag import BlockDiag
+from agglomerationmultigrid1d.transfer import (
     aggdg_dg_interpolation,
     scattered_dg_interpolation,
     scattered_galerkin,
@@ -74,7 +74,7 @@ def _rand_bcoo(rng, n, bs, density=0.3):
     np.fill_diagonal(mask, True)
     rows, cols = np.nonzero(mask)
     blocks = rng.standard_normal((bs, bs, rows.size))
-    from agglomerationmultigrid1d_tpu.ops import bcoo_coalesce
+    from agglomerationmultigrid1d.ops import bcoo_coalesce
 
     return bcoo_coalesce(rows, cols, blocks, n, n)
 
@@ -254,7 +254,7 @@ def test_noncontiguous_rediscretization_equals_galerkin(p_agg, bc):
 
 
 def bcoo_from_bt_mass(dg):
-    from agglomerationmultigrid1d_tpu.ops import BlockTridiag, bcoo_from_bt
+    from agglomerationmultigrid1d.ops import BlockTridiag, bcoo_from_bt
 
     bs, n = dg.mass.blocks.shape[0], dg.mass.blocks.shape[2]
     z = jnp.zeros((bs, bs, n), dtype=dg.mass.blocks.dtype)
@@ -360,9 +360,9 @@ def _dg_problem(n=32):
     g, d, c = dg_flux_operators(dg, bc, c_dir)
     a = schur_stiffness(g, d, c, dg.mass_inv)
 
-    from agglomerationmultigrid1d_tpu.assembly import dg_flux_rhs
-    from agglomerationmultigrid1d_tpu.ops.block_diag import bd_matvec
-    from agglomerationmultigrid1d_tpu.ops.block_tridiag import bt_matvec
+    from agglomerationmultigrid1d.assembly import dg_flux_rhs
+    from agglomerationmultigrid1d.ops.block_diag import bd_matvec
+    from agglomerationmultigrid1d.ops.block_tridiag import bt_matvec
 
     func = lambda x: jnp.sin(2.0 * jnp.pi * x) * (2.0 * jnp.pi) ** 2  # noqa: E731
     f, r = dg_flux_rhs(dg, func, bc, c_dir)
@@ -427,7 +427,7 @@ def test_contiguous_below_scattered_rejected():
 def test_poisson_scattered_hierarchy_factory():
     """One-call constructor: default locally-interleaved partition solves the
     model problem to 1e-10 and matches the dense direct solution."""
-    from agglomerationmultigrid1d_tpu.models import (
+    from agglomerationmultigrid1d.models import (
         multigrid as mg,
         poisson_scattered_hierarchy,
     )

@@ -12,20 +12,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from agglomerationmultigrid1d_tpu.models.problems import poisson_dg_hierarchy
-from agglomerationmultigrid1d_tpu.models.solvers import multigrid, v_cycle
-from agglomerationmultigrid1d_tpu.ops.block_tridiag import BlockTridiag, bt_matvec
-from agglomerationmultigrid1d_tpu.ops.pallas import chebyshev_coefficients
-from agglomerationmultigrid1d_tpu.ops.pallas.block_kernels import multisweep_shapes_ok
-from agglomerationmultigrid1d_tpu.parallel import (
+from agglomerationmultigrid1d.models.problems import poisson_dg_hierarchy
+from agglomerationmultigrid1d.models.solvers import multigrid, v_cycle
+from agglomerationmultigrid1d.ops.block_tridiag import BlockTridiag, bt_matvec
+from agglomerationmultigrid1d.ops.pallas import chebyshev_coefficients
+from agglomerationmultigrid1d.ops.pallas.block_kernels import multisweep_shapes_ok
+from agglomerationmultigrid1d.parallel import (
     fused_shard_spec,
     make_solver_mesh,
     shard_hierarchy,
     sharded_chebyshev_multisweep,
     sharded_multisweep,
 )
-from agglomerationmultigrid1d_tpu.parallel.distributed import shard_vector
-from agglomerationmultigrid1d_tpu.smoothers.smoother import (
+from agglomerationmultigrid1d.parallel.distributed import shard_vector
+from agglomerationmultigrid1d.smoothers.smoother import (
     BlockJacobiSmoother,
     apply_smoother,
 )

@@ -6,12 +6,12 @@ high-frequency error (spectral radius of I - alpha S A on the upper spectrum),
 import jax.numpy as jnp
 import numpy as np
 
-from agglomerationmultigrid1d_tpu.assembly import cg_stiffness_and_rhs, dg_flux_operators
-from agglomerationmultigrid1d_tpu.mesh import BoundaryCondition, create_uniform_mesh, make_cg_mesh, make_dg_mesh
-from agglomerationmultigrid1d_tpu.models.hierarchy import CgLevel, BlockLevel, _schur_stiffness
-from agglomerationmultigrid1d_tpu.models.solvers import iterative_smoother_solve
-from agglomerationmultigrid1d_tpu.ops import bt_to_dense, cg_to_dense, cg_node_multiplicity
-from agglomerationmultigrid1d_tpu.smoothers import apply_smoother, cg_smoother, dg_smoother
+from agglomerationmultigrid1d.assembly import cg_stiffness_and_rhs, dg_flux_operators
+from agglomerationmultigrid1d.mesh import BoundaryCondition, create_uniform_mesh, make_cg_mesh, make_dg_mesh
+from agglomerationmultigrid1d.models.hierarchy import CgLevel, BlockLevel, _schur_stiffness
+from agglomerationmultigrid1d.models.solvers import iterative_smoother_solve
+from agglomerationmultigrid1d.ops import bt_to_dense, cg_to_dense, cg_node_multiplicity
+from agglomerationmultigrid1d.smoothers import apply_smoother, cg_smoother, dg_smoother
 
 BC = BoundaryCondition(("neu", -np.sin(0.0)), ("dir", np.cos(1.0)))
 
@@ -123,12 +123,12 @@ def test_chebyshev_smoothing_cuts_cycle_count():
     cost, on both hierarchy families."""
     import jax.numpy as jnp
 
-    from agglomerationmultigrid1d_tpu.models.hierarchy import chebyshev_hierarchy
-    from agglomerationmultigrid1d_tpu.models.problems import (
+    from agglomerationmultigrid1d.models.hierarchy import chebyshev_hierarchy
+    from agglomerationmultigrid1d.models.problems import (
         poisson_dg_hierarchy,
         poisson_full_hierarchy,
     )
-    from agglomerationmultigrid1d_tpu.models.solvers import multigrid
+    from agglomerationmultigrid1d.models.solvers import multigrid
 
     for prob in (
         poisson_dg_hierarchy(n=256, max_p=3, n_dg=2, n_agg=4),

@@ -13,23 +13,23 @@ import pytest
 
 REPO = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
 
-from agglomerationmultigrid1d_tpu.models.hierarchy import (
+from agglomerationmultigrid1d.models.hierarchy import (
     CgLevel,
     chebyshev_hierarchy,
     prepare_fast_smoothers,
     strip_hierarchy,
 )
-from agglomerationmultigrid1d_tpu.models.problems import build_problem
-from agglomerationmultigrid1d_tpu.models.solvers import _mixed_loop_ff
-from agglomerationmultigrid1d_tpu.models.stencil_setup import (
+from agglomerationmultigrid1d.models.problems import build_problem
+from agglomerationmultigrid1d.models.solvers import _mixed_loop_ff
+from agglomerationmultigrid1d.models.stencil_setup import (
     build_xl_problem,
     default_stencil_factor,
     inflate_hierarchy,
 )
-from agglomerationmultigrid1d_tpu.ops.coarse_solve import coarse_solve
-from agglomerationmultigrid1d_tpu.ops.df64 import FF, bt_split, cg_band_split, ff_split
-from agglomerationmultigrid1d_tpu.utils.config import HierarchySpec
-from agglomerationmultigrid1d_tpu.utils.precision import hierarchy_astype
+from agglomerationmultigrid1d.ops.coarse_solve import coarse_solve
+from agglomerationmultigrid1d.ops.df64 import FF, bt_split, cg_band_split, ff_split
+from agglomerationmultigrid1d.utils.config import HierarchySpec
+from agglomerationmultigrid1d.utils.precision import hierarchy_astype
 
 
 def _dg_spec(n):
@@ -165,8 +165,8 @@ def test_slim_fine_defect_and_solve():
     materialized-pair defect exactly away from the boundary seams (and to
     f64-jitter at them), the slim fine level's M-form matvec must approximate
     A x to f32 rounding, and the guarded solve must converge identically."""
-    from agglomerationmultigrid1d_tpu.models.solvers import level_matvec
-    from agglomerationmultigrid1d_tpu.ops.df64 import ff_defect
+    from agglomerationmultigrid1d.models.solvers import level_matvec
+    from agglomerationmultigrid1d.ops.df64 import ff_defect
 
     n = 4096
     spec = _dg_spec(n)
@@ -191,7 +191,7 @@ def test_slim_fine_defect_and_solve():
 
     # M-form matvec of the slim level ~ true A x to f32 rounding
     y_s = np.asarray(level_matvec(h_s.levels[0], xh))
-    from agglomerationmultigrid1d_tpu.ops.block_tridiag import bt_matvec
+    from agglomerationmultigrid1d.ops.block_tridiag import bt_matvec
 
     y_f = np.asarray(bt_matvec(h_f.levels[0].a, xh))
     np.testing.assert_allclose(y_s, y_f, rtol=0, atol=3e-6 * float(np.abs(y_f).max()))
@@ -220,7 +220,7 @@ def test_inflate_f64_identity_roundtrip():
     prob_small = build_problem(
         spec, n // z, to_device=False,
         mesh=__import__(
-            "agglomerationmultigrid1d_tpu.models.stencil_setup", fromlist=["x"]
+            "agglomerationmultigrid1d.models.stencil_setup", fromlist=["x"]
         )._stencil_mesh(n // z, 1.0 / n),
     )
     h_small = strip_hierarchy(prob_small.hierarchy)
@@ -234,7 +234,7 @@ def test_inflate_f64_identity_roundtrip():
 def test_inflation_rejects_nonuniform():
     """A graded mesh is not translation invariant; the constancy check must
     catch it instead of silently inflating a wrong operator."""
-    from agglomerationmultigrid1d_tpu.mesh.topology import create_graded_mesh
+    from agglomerationmultigrid1d.mesh.topology import create_graded_mesh
 
     n, z = 2048, 8
     spec = _dg_spec(n)
@@ -253,15 +253,15 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from agglomerationmultigrid1d_tpu.models.solvers import (
+from agglomerationmultigrid1d.models.solvers import (
     _mixed_eager_outer,
     _mixed_loop_ff,
     _progressive_eager,
     _progressive_loop,
 )
-from agglomerationmultigrid1d_tpu.models.stencil_setup import build_xl_problem
-from agglomerationmultigrid1d_tpu.ops.df64 import FF
-from agglomerationmultigrid1d_tpu.utils.config import HierarchySpec
+from agglomerationmultigrid1d.models.stencil_setup import build_xl_problem
+from agglomerationmultigrid1d.ops.df64 import FF
+from agglomerationmultigrid1d.utils.config import HierarchySpec
 
 n = 4096
 spec = HierarchySpec(
@@ -296,7 +296,7 @@ for c64 in (None, coarse64):
 # the TRUE-precision cycle (value-accurate operators + f64 outer defect)
 # converges BELOW the float-float accuracy floor
 # (~2^-48 * |||A||x||/||b|| — about 3e-11 at this n, ~4e-7 at the 1e8 north star)
-from agglomerationmultigrid1d_tpu.models.solvers import _progressive_true_eager
+from agglomerationmultigrid1d.models.solvers import _progressive_true_eager
 xt, itt, ht = _progressive_true_eager(
     h32, ffops, x0, b_ff, inv_nb, maxiter=35, tol=1e-11, cut=1,
     n_pre=3, n_post=3, alpha=2.0 / 3.0,
@@ -386,7 +386,7 @@ def test_multigrid_true_public_wrapper():
     """`models.multigrid_true` (the public north-star entry) converges below
     the float-float floor on a conditioning-matched problem and preserves the
     reference observability contract."""
-    from agglomerationmultigrid1d_tpu.models import multigrid_true
+    from agglomerationmultigrid1d.models import multigrid_true
 
     n = 16384
     spec = HierarchySpec(

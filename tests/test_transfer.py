@@ -10,12 +10,12 @@ import numpy as np
 
 from helpers import bp_dense, cgp_dense, seam_dense
 
-from agglomerationmultigrid1d_tpu.assembly import (
+from agglomerationmultigrid1d.assembly import (
     agg_flux_operators,
     cg_stiffness,
     dg_flux_operators,
 )
-from agglomerationmultigrid1d_tpu.mesh import (
+from agglomerationmultigrid1d.mesh import (
     BoundaryCondition,
     coarsen_agg_mesh,
     create_uniform_mesh,
@@ -23,7 +23,7 @@ from agglomerationmultigrid1d_tpu.mesh import (
     make_cg_mesh,
     make_dg_mesh,
 )
-from agglomerationmultigrid1d_tpu.ops import (
+from agglomerationmultigrid1d.ops import (
     bd_to_dense,
     bp_galerkin,
     bp_prolong,
@@ -33,7 +33,7 @@ from agglomerationmultigrid1d_tpu.ops import (
     cgp_prolong,
     seam_prolong,
 )
-from agglomerationmultigrid1d_tpu.transfer import (
+from agglomerationmultigrid1d.transfer import (
     aggdg_aggdg_interpolation,
     aggdg_cg_interpolation,
     aggdg_dg_interpolation,
@@ -237,7 +237,7 @@ def test_seam_dense_matches_structured(rng):
         np.testing.assert_allclose(
             np.asarray(seam_prolong(l, xc)), ld @ np.asarray(xc).T.reshape(-1), atol=1e-12
         )
-        from agglomerationmultigrid1d_tpu.ops import seam_restrict
+        from agglomerationmultigrid1d.ops import seam_restrict
 
         rf = jnp.asarray(rng.standard_normal((cg.n_nodes,)))
         np.testing.assert_allclose(

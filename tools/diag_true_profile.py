@@ -9,7 +9,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from agglomerationmultigrid1d_tpu.models.solvers import (
+from agglomerationmultigrid1d.models.solvers import (
     _f64_rel_defect,
     _ff_add_program,
     _true_level_correct_program,
@@ -17,12 +17,12 @@ from agglomerationmultigrid1d_tpu.models.solvers import (
     _true_level_pre_program,
     _true_tail_cycle_program,
 )
-from agglomerationmultigrid1d_tpu.models.stencil_setup import (
+from agglomerationmultigrid1d.models.stencil_setup import (
     build_xl_problem,
     default_stencil_factor,
 )
-from agglomerationmultigrid1d_tpu.ops.df64 import FF
-from agglomerationmultigrid1d_tpu.utils.config import HierarchySpec
+from agglomerationmultigrid1d.ops.df64 import FF
+from agglomerationmultigrid1d.utils.config import HierarchySpec
 
 
 def log(*a):

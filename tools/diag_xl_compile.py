@@ -25,9 +25,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import agglomerationmultigrid1d_tpu.models.solvers as solvers
-from agglomerationmultigrid1d_tpu.models.hierarchy import Hierarchy
-from agglomerationmultigrid1d_tpu.models.solvers import (
+import agglomerationmultigrid1d.models.solvers as solvers
+from agglomerationmultigrid1d.models.hierarchy import Hierarchy
+from agglomerationmultigrid1d.models.solvers import (
     _ff_rel_defect,
     _inner_cycle_step,
     _smooth_n,
@@ -37,12 +37,12 @@ from agglomerationmultigrid1d_tpu.models.solvers import (
     _crop_cg,
     _pad_cg,
 )
-from agglomerationmultigrid1d_tpu.models.stencil_setup import (
+from agglomerationmultigrid1d.models.stencil_setup import (
     build_xl_problem,
     default_stencil_factor,
 )
-from agglomerationmultigrid1d_tpu.ops.df64 import FF
-from agglomerationmultigrid1d_tpu.utils.config import HierarchySpec
+from agglomerationmultigrid1d.ops.df64 import FF
+from agglomerationmultigrid1d.utils.config import HierarchySpec
 
 
 def log(*a):

@@ -20,19 +20,19 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import agglomerationmultigrid1d_tpu.models.solvers as solvers
-from agglomerationmultigrid1d_tpu.models.solvers import (
+import agglomerationmultigrid1d.models.solvers as solvers
+from agglomerationmultigrid1d.models.solvers import (
     _level_post_program,
     _level_pre_program,
     _tail_cycle_program,
     _tail_hierarchy,
 )
-from agglomerationmultigrid1d_tpu.models.stencil_setup import (
+from agglomerationmultigrid1d.models.stencil_setup import (
     build_xl_problem,
     default_stencil_factor,
 )
-from agglomerationmultigrid1d_tpu.ops.coarse_solve import coarse_solve
-from agglomerationmultigrid1d_tpu.utils.config import HierarchySpec
+from agglomerationmultigrid1d.ops.coarse_solve import coarse_solve
+from agglomerationmultigrid1d.utils.config import HierarchySpec
 
 
 def log(*a):

@@ -21,18 +21,18 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from agglomerationmultigrid1d_tpu.models.solvers import (
+from agglomerationmultigrid1d.models.solvers import (
     _level_correct_program,
     _level_postsmooth_program,
     _level_pre_program,
     _mixed_eager_outer,
 )
-from agglomerationmultigrid1d_tpu.models.stencil_setup import (
+from agglomerationmultigrid1d.models.stencil_setup import (
     build_xl_problem,
     default_stencil_factor,
 )
-from agglomerationmultigrid1d_tpu.ops.df64 import FF
-from agglomerationmultigrid1d_tpu.utils.config import HierarchySpec
+from agglomerationmultigrid1d.ops.df64 import FF
+from agglomerationmultigrid1d.utils.config import HierarchySpec
 
 
 def log(*a):
@@ -110,7 +110,7 @@ def main():
     # module now compile at this size?
     import functools as _ft
 
-    from agglomerationmultigrid1d_tpu.models.solvers import _inner_cycle_step
+    from agglomerationmultigrid1d.models.solvers import _inner_cycle_step
 
     try_compile(
         "inner_cycle_step(full, new prolong)",

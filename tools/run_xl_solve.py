@@ -14,13 +14,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from agglomerationmultigrid1d_tpu.models.solvers import _mixed_eager_outer
-from agglomerationmultigrid1d_tpu.models.stencil_setup import (
+from agglomerationmultigrid1d.models.solvers import _mixed_eager_outer
+from agglomerationmultigrid1d.models.stencil_setup import (
     build_xl_problem,
     default_stencil_factor,
 )
-from agglomerationmultigrid1d_tpu.ops.df64 import FF
-from agglomerationmultigrid1d_tpu.utils.config import HierarchySpec
+from agglomerationmultigrid1d.ops.df64 import FF
+from agglomerationmultigrid1d.utils.config import HierarchySpec
 
 
 def log(*a):

@@ -18,8 +18,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from agglomerationmultigrid1d_tpu.ops.block_tridiag import BlockTridiag, bt_matvec
-from agglomerationmultigrid1d_tpu.ops.pallas import (
+from agglomerationmultigrid1d.ops.block_tridiag import BlockTridiag, bt_matvec
+from agglomerationmultigrid1d.ops.pallas import (
     chebyshev_coefficients,
     pallas_block_jacobi_multisweep,
     pallas_block_jacobi_multisweep_residual,
@@ -27,12 +27,12 @@ from agglomerationmultigrid1d_tpu.ops.pallas import (
     pallas_bt_matvec,
     pallas_chebyshev_multisweep,
 )
-from agglomerationmultigrid1d_tpu.parallel import (
+from agglomerationmultigrid1d.parallel import (
     make_solver_mesh,
     sharded_chebyshev_multisweep,
     sharded_multisweep,
 )
-from agglomerationmultigrid1d_tpu.smoothers.smoother import (
+from agglomerationmultigrid1d.smoothers.smoother import (
     BlockJacobiSmoother,
     apply_smoother,
 )
@@ -136,12 +136,12 @@ def main() -> int:
     # fused float-float stencil defect (true-precision cycle hot loop) vs the
     # XLA interior pass — identical EFT operation order on this backend
     print("float-float stencil defect kernel:")
-    from agglomerationmultigrid1d_tpu.ops.df64 import (
+    from agglomerationmultigrid1d.ops.df64 import (
         FF,
         BTFFStencil,
         _ff_mid_defect,
     )
-    from agglomerationmultigrid1d_tpu.ops.pallas import pallas_ff_stencil_mid_defect
+    from agglomerationmultigrid1d.ops.pallas import pallas_ff_stencil_mid_defect
 
     bs2, n2 = 2, 1 << 18
     bt1 = lambda s: BlockTridiag(  # noqa: E731
@@ -171,7 +171,7 @@ def main() -> int:
     # transforms — the defect of a random system must match the f64 reference
     # to ~2^-40, far past f32's 2^-24 (a reassociation regression lands ~1e-7)
     print("float-float defect (unfenced on this backend):")
-    from agglomerationmultigrid1d_tpu.ops.df64 import bt_split, ff_bt_defect, ff_split
+    from agglomerationmultigrid1d.ops.df64 import bt_split, ff_bt_defect, ff_split
 
     a64 = BlockTridiag(*(jnp.asarray(np.asarray(m), jnp.float64) for m in a))
     x64 = jnp.asarray(np.asarray(x), jnp.float64) * (1.0 + 1e-9)
