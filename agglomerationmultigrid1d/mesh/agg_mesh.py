@@ -1,6 +1,6 @@
 """Agglomerated-DG mesh levels (local modal basis on merged base elements).
 
-TPU-native counterpart of ``src/agglomerated_dg_mesh.jl``.  One class covers
+Counterpart of ``src/agglomerated_dg_mesh.jl``.  One class covers
 both the reference's ``AgglomeratedDgMesh1`` (first agglomeration level, built
 from base CG/DG elements, ``:31-47``) and ``AgglomeratedDgMeshN`` (recursive
 levels, ``:62-72``).  Agglomerate ``c`` owns the *contiguous* run of base

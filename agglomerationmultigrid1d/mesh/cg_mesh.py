@@ -1,6 +1,6 @@
 """Continuous-Galerkin discretization mesh (order-p nodal Lagrange).
 
-TPU-native counterpart of ``src/cg_mesh.jl:12-80``.  Differences by design:
+Counterpart of ``src/cg_mesh.jl:12-80``.  Differences by design:
 
 * **Node numbering is spatial ("grid order")**: element k owns global nodes
   ``k*p .. k*p + p`` left to right, sharing endpoints with neighbors.  The

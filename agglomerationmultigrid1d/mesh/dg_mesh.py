@@ -1,10 +1,10 @@
 """Discontinuous-Galerkin discretization mesh (order-p nodal, element-contiguous).
 
-TPU-native counterpart of ``src/dg_mesh.jl:16-138``.  DoFs keep the reference's
+Counterpart of ``src/dg_mesh.jl:16-138``.  DoFs keep the reference's
 *slot* ordering inside each element (slot 0 = left endpoint, slot 1 = right
 endpoint, slots 2..p = interior Chebyshev nodes in descending x,
 ``dg_mesh.jl:41-46``), and element k owns the contiguous block ``k*(p+1) ..``;
-vectors are stored as ``(p+1, n)`` with the element axis on TPU lanes.
+vectors are stored as ``(p+1, n)`` with the element axis last (contiguous).
 
 The per-vertex "switch function" (``dg_mesh.jl:81-109``) resolves — due to both
 branches of the interior case reading ``vert.mFaces[1]`` — to the deterministic

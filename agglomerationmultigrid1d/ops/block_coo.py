@@ -7,7 +7,7 @@ structure is its arbitrary-partition agglomeration ctor
 (``src/agglomerated_dg_mesh.jl:400-495``): a *non-contiguous* agglomerate
 couples, through its interface vertices, to every agglomerate adjacent to any
 of its runs — a general (if still very sparse) block graph.  The reference
-holds those operators in CSC; the TPU-native format here is SoA block COO:
+holds those operators in CSC; the format here is SoA block COO:
 
 * ``rows`` / ``cols``  (nnz,) int32 block coordinates, row-major sorted and
   coalesced (construction helpers below enforce this),
@@ -15,7 +15,7 @@ holds those operators in CSC; the TPU-native format here is SoA block COO:
 
 The matvec is one gather + one batched block product + one ``segment_sum`` —
 the standard XLA sparse recipe (cf. ``jax.experimental.sparse`` BCOO, whose
-layout this mirrors with the lane axis last for TPU tiling).  Products with
+layout this mirrors with the element axis last).  Products with
 block-diagonal matrices and general SpGEMM run on the host at setup, exactly
 like every other coarse-level factorization in this framework.
 
@@ -82,8 +82,8 @@ class BlockCOO:
 def _small_block_contract(blocks: jax.Array, xg: jax.Array) -> jax.Array:
     """``out[a, k] = sum_b blocks[a, b, k] * xg[b, k]`` as an unrolled
     broadcast sum (same rationale as ``block_tridiag.block_mul``: einsum over a
-    tiny contracted axis batched over the lane axis forces a batch-major
-    relayout on TPU)."""
+    tiny contracted axis batched over the element axis becomes a batched
+    dot_general with a batch-major relayout)."""
     bs_c = blocks.shape[1]
     out = blocks[:, 0, :] * xg[0][None, :]
     for b in range(1, bs_c):

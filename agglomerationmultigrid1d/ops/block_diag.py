@@ -1,10 +1,10 @@
 """Block-diagonal operators with a uniform block size, in SoA layout.
 
-TPU-native replacement for the reference's ``BlockDiagonal`` /
+Replacement for the reference's ``BlockDiagonal`` /
 ``BlockDiagonalLU`` types (``src/block_diagonal.jl:11-21``).  Blocks are stored
-as ``(bs, bs, n)`` with the element axis trailing so it lands on the TPU's
-128-wide vector lanes; a matvec is then ``bs^2`` fused multiply-adds over
-n-vectors (bandwidth-optimal on the VPU) instead of n tiny LAPACK calls.
+as ``(bs, bs, n)`` with the element axis trailing (contiguous); a matvec is
+then ``bs^2`` fused multiply-adds over n-vectors (bandwidth-bound, one
+elementwise pass) instead of n tiny LAPACK calls.
 
 Instead of an LU factorization per block (``block_diagonal.jl:47-58``) we
 precompute the explicit block inverses once at setup: blocks are tiny
@@ -58,8 +58,7 @@ def bd_inverse(bd: BlockDiag) -> BlockDiag:
     """Explicit per-block inverse.
 
     Setup-time only and computed on the host (native C++ batched Gauss-Jordan
-    when built, NumPy LAPACK otherwise): the TPU backend implements
-    LuDecomposition only in f32, while these factorizations must happen in f64
+    when built, NumPy LAPACK otherwise): these factorizations happen in f64
     for parity with the reference's LAPACK/UMFPACK solves.
     """
     import numpy as np

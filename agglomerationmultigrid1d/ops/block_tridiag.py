@@ -1,6 +1,6 @@
 """Block-tridiagonal operators with uniform block size, in SoA layout.
 
-This is the TPU-native format for every DG / agglomerated-DG operator in the
+This is the format for every DG / agglomerated-DG operator in the
 framework (G, D, C, Schur stiffness A = C - D M^-1 G, and their Galerkin coarse
 versions).  In the reference these are general CSC sparse matrices
 (``src/dg_mesh.jl:328-333``); in 1D their structure is exactly block-tridiagonal
@@ -54,11 +54,10 @@ def block_mul(a: jax.Array, b: jax.Array) -> jax.Array:
     """Batched per-block product ``C[:, :, k] = A[:, :, k] @ B[:, :, k]`` on
     ``(bs, bs, n)`` SoA tensors.
 
-    Deliberately NOT ``jnp.einsum("ijn,jkn->ikn", ...)``: on TPU that lowers to
-    a dot_general with the tiny bs-contraction batched over n, which forces a
-    relayout of every operand into batch-major tiling with up to 32x padding —
-    a 24 GB HLO temp at bs = 4, n = 4M.  The unrolled broadcast sum keeps n on
-    the 128-lane axis and fuses to bs^2 elementwise FMAs."""
+    Deliberately NOT ``jnp.einsum("ijn,jkn->ikn", ...)``: that lowers to a
+    dot_general with the tiny bs-contraction batched over n, which can force a
+    batch-major relayout of every operand.  The unrolled broadcast sum keeps
+    n as the contiguous axis and fuses to bs^2 elementwise FMAs."""
     bs = a.shape[0]
     acc = a[:, 0, None, :] * b[None, 0, :, :]
     for j in range(1, bs):

@@ -7,7 +7,7 @@ Two factorizations, both host-side at setup, both applied on-device:
   reference configuration) and for CG coarsest levels.
 * :class:`BTCoarseSolver` — **block cyclic reduction** of a block-tridiagonal
   coarsest operator (``solvers.jl:39`` relies on UMFPACK handling any size;
-  this is the TPU-native equivalent for large coarse levels).  Setup is
+  this is the equivalent for large coarse levels).  Setup is
   O(n bs^3) host NumPy; the solve is ~2 log2(n) stages of batched small
   matmuls with O(n bs^2) memory — no dense matrix is ever formed, so there is
   no size cliff.  One refinement step against the stored block-tridiagonal

@@ -1,20 +1,20 @@
-"""Float-float ("double-f32") arithmetic for f64-accurate defects at f32 speed.
+"""Float-float ("double-f32") arithmetic for f64-accurate defects from f32 data.
 
-TPU has no native f64: XLA emulates it ~100x slower than f32, and the emulated
-block-tridiagonal defect ``r = b - A x`` dominates the mixed-precision solver's
-runtime (the reference runs everything in native f64 on CPU,
-``src/solvers.jl:33``).  This module represents every f64 quantity as an
-unevaluated pair of f32s ``hi + lo`` with ``|lo| <= ulp(hi)/2`` (~2^-48 ≈ 7e-15
-relative precision — more than the 2^-52 of true f64's mantissa tail we give
-up, and far beyond the 1e-10 relative-residual targets) and evaluates the
-defect with error-free transformations:
+The mixed, progressive and true-precision solvers keep their iterates and
+operators in f32 and need the defect ``r = b - A x`` to f64 accuracy (the
+reference runs everything in f64, ``src/solvers.jl:33``).  This module
+represents every f64 quantity as an unevaluated pair of f32s ``hi + lo`` with
+``|lo| <= ulp(hi)/2`` (~2^-48 ≈ 7e-15 relative precision — far beyond the
+1e-10 relative-residual targets) and evaluates the defect with error-free
+transformations:
 
 * ``two_sum``  — Knuth's branch-free exact addition (6 f32 ops),
 * ``two_prod`` — Dekker's exact product via 12-bit operand splitting (17 f32
-  ops; no FMA assumed — TPU VPU mul/add are individually IEEE-rounded),
+  ops; it needs every mul and add individually rounded — see
+  :data:`FENCE_EFT`).
 
-so one defect costs ~30 f32 VPU ops per matrix nonzero instead of one emulated
-f64 MAC — an order of magnitude faster at identical solver behavior.
+Whether this beats native f64 on a card that has it is open (ROADMAP, precision
+path).
 
 All public entry points force ``float32`` dtypes; inputs may be f64 (split
 exactly) or f32 pairs.
@@ -49,14 +49,18 @@ class BlockTridiagFF(NamedTuple):
 
 
 def ff_split(x: jax.Array) -> FF:
-    """Exactly split an f64 array into an f32 pair (hi = round(x), lo = round(x - hi))."""
-    hi = x.astype(jnp.float32)
+    """Exactly split an f64 array into an f32 pair (hi = round(x), lo = round(x - hi)).
+
+    The barrier keeps XLA from folding ``f64(f32(x))`` back to ``x``: XLA:GPU
+    drops such round trips as allowed excess precision, which zeroes ``lo``
+    (seen on an H100 as 3e-7 relative errors of the in-jit f64 defect)."""
+    hi = jax.lax.optimization_barrier(x.astype(jnp.float32))
     lo = (x - hi.astype(x.dtype)).astype(jnp.float32)
     return FF(hi, lo)
 
 
 def ff_join(x: FF) -> jax.Array:
-    """Recombine to f64 (one emulated-f64 add per element)."""
+    """Recombine to f64 (one f64 add per element)."""
     return x.hi.astype(jnp.float64) + x.lo.astype(jnp.float64)
 
 
@@ -134,25 +138,22 @@ def ff_from_f32(x: jax.Array) -> FF:
     return FF(x, jnp.zeros_like(x))
 
 
-import functools as _ft
-
-
-@_ft.lru_cache(maxsize=1)
-def _use_barriers() -> bool:
-    """Whether the EFT chains need optimization_barrier fences.
-
-    XLA:CPU's optimizer reassociates the fused accumulation across the
-    error-free transforms (measured defect error 6.7e-12 unfenced vs 5e-15
-    fenced); XLA:TPU preserves them exactly without fences — and the fences
-    are NOT free there: every pinned (hi, lo) pair becomes a materialized
-    buffer, which at 10^8 DoF adds ~5 GB of HBM temporaries to the fused
-    refinement program (observed 22.1 GB vs the 15.75 GB v5e capacity).
-    Decided once per process from the default backend."""
-    return jax.default_backend() == "cpu"
+# Whether every product and renormalized accumulator of the EFT chains is
+# pinned with an ``optimization_barrier``.  Unfenced, XLA fuses the whole
+# chain into one loop, and an optimizer that reassociated the accumulation or
+# contracted ``a * b - c`` into an FMA would break the error-free transforms.
+# Measured on an H100 (``chip_smoke.py`` phase 3, f64 reference on the card):
+# the unfenced dense, stencil and CG-band defects are as exact as the fenced
+# ones (~1e-13 relative), and the fences cost 7-57% of the defect time.  On
+# the CPU backend, phase 3 at 2^20 dense and 2^22 stencil blocks gives equal
+# fenced and unfenced errors as well (1.2e-13, 1.0e-13, 3.6e-14).  So the
+# chains run unfenced; phase 3 re-measures both settings on every smoke run.
+# Read at trace time.
+FENCE_EFT = False
 
 
 def _fence(t: FF) -> FF:
-    if _use_barriers():
+    if FENCE_EFT:
         return FF(*jax.lax.optimization_barrier((t.hi, t.lo)))
     return t
 
@@ -160,12 +161,12 @@ def _fence(t: FF) -> FF:
 def _contract_ff(m: BlockTridiagFF, sel, x: FF, acc: FF, sign: float) -> FF:
     """acc += sign * (sel(m)[i, j, :] @ x[j, :]) over the block rows.
 
-    Two details here are load-bearing against XLA:CPU's optimizer (see
-    :func:`_use_barriers` — TPU is exact unfenced and the fences cost HBM):
+    Two details here guard against XLA's optimizer:
 
-    * on CPU, each product and each renormalized accumulator pair is pinned
-      with an ``optimization_barrier`` so the fused accumulation loop cannot
-      be reassociated across the error-free transforms;
+    * with :data:`FENCE_EFT`, each product and each renormalized accumulator
+      pair is pinned with an ``optimization_barrier`` so the fused
+      accumulation loop cannot be reassociated across the error-free
+      transforms;
     * the sign is applied to the *product* (after its barrier), never to the
       multiplicand — ``(-a) * x`` invites a sign-distribution rewrite through
       Dekker's splitting that costs ~12 bits."""
@@ -234,10 +235,9 @@ class BTFFStencil:
     Away from the first/last ``bw`` block columns every block of the operator
     is identical (see ``models.stencil_setup``), so the defect can contract
     with ONE (bs, bs) block broadcast over the whole element axis — the
-    operator contributes zero HBM traffic and zero residency; only x, b and r
-    move.  At the 10^8-DoF north star this removes ~4 GB of fine-level
-    arrays and makes the float-float defect ~3x faster than streaming the
-    materialized pair.
+    operator contributes zero device-memory traffic and zero residency; only
+    x, b and r move.  At the 10^8-DoF north star this removes ~4 GB of fine-level
+    arrays.
 
     ``left``/``right`` hold the ``bw`` boundary columns, ``mid`` one interior
     column, each as an (hi, lo) pair of BlockTridiags; ``n`` is the full
@@ -270,9 +270,9 @@ def _bt_concat(parts: list[BlockTridiag]) -> BlockTridiag:
 
 
 # Above this many columns the interior EFT pass runs in serialized chunks:
-# the fused full-length chain otherwise holds ~12 vector-sized temporaries
-# live at once (measured 4.83 GB at 1e8 DoF — enough to push the progressive
-# cycle's working set past the v5e's 15.75 GB HBM).
+# the fenced full-length chain otherwise holds ~12 vector-sized temporaries
+# live at once (~4.8 GB at 1e8 DoF).  Whether an 80 GB card needs the chunks
+# is open (ROADMAP, serialized chunking).
 _FF_DEFECT_CHUNK = 1 << 21
 
 
@@ -325,29 +325,20 @@ def _ff_mid_defect_chunked(a: BTFFStencil, x: FF, b: FF, n: int, chunks: int) ->
 def ff_bt_defect_stencil(a: BTFFStencil, x: FF, b: FF) -> FF:
     """``r = b - A x`` where A lives as stencils (see :class:`BTFFStencil`).
 
-    One fenced EFT pass with the broadcast mid blocks (XLA fuses the
-    broadcasts into the contraction — no operator materialization), chunked
-    above ``_FF_DEFECT_CHUNK`` columns (see :func:`_ff_mid_defect_chunked`),
-    then the first/last ``bw`` columns are recomputed on small windows with
-    the exact boundary blocks and spliced in."""
+    One EFT pass with the broadcast mid blocks (XLA fuses the broadcasts into
+    the contraction — no operator materialization), chunked above
+    ``_FF_DEFECT_CHUNK`` columns (see :func:`_ff_mid_defect_chunked`), then
+    the first/last ``bw`` columns are recomputed on small windows with the
+    exact boundary blocks and spliced in."""
     bw = a.hi_left.diag.shape[-1]
     n = a.n
-    r = None
-    if jax.default_backend() != "cpu" and x.hi.dtype == jnp.float32:
-        # one fused VMEM pass (the hot loop of the true-precision cycle);
-        # identical EFT operation order, ~memory-bound instead of ~80x above
-        # the HBM floor — see ops/pallas/block_kernels.py
-        from .pallas import pallas_ff_stencil_mid_defect
-
-        r = pallas_ff_stencil_mid_defect(a.hi_mid, a.lo_mid, x, b)
-    if r is None:
-        chunks = 1
-        while n % (2 * chunks) == 0 and n // chunks > 2 * _FF_DEFECT_CHUNK:
-            chunks *= 2
-        if chunks > 1:
-            r = _ff_mid_defect_chunked(a, x, b, n, chunks)
-        else:
-            r = _ff_mid_defect(a, x, b, n)
+    chunks = 1
+    while n % (2 * chunks) == 0 and n // chunks > 2 * _FF_DEFECT_CHUNK:
+        chunks *= 2
+    if chunks > 1:
+        r = _ff_mid_defect_chunked(a, x, b, n, chunks)
+    else:
+        r = _ff_mid_defect(a, x, b, n)
 
     # boundary windows of width bw + 2: the defect needs the +-1 neighbor, so
     # columns [0, bw] of the window are exact (col bw + 1 reads a zero-padded
@@ -373,22 +364,19 @@ def ff_bt_defect_stencil(a: BTFFStencil, x: FF, b: FF) -> FF:
 
 
 def f64_bt_defect_stencil(a: BTFFStencil, x_ff: FF, b_ff: FF) -> FF:
-    """``r = b - A x`` in TRUE (emulated) f64 from the stencil operator,
-    consumed and produced as float-float PAIRS.
+    """``r = b - A x`` in TRUE f64 from the stencil operator, consumed and
+    produced as float-float PAIRS.
 
     The float-float defect's accuracy is ``2^-48 * || |A| |x| || / ||b||``
     relative — ~4e-7 at the 1e8-DoF north star's CDir = 1000 n conditioning,
     which floors the progressive iteration above the 1e-8 target (measured:
     cycles bounce in the 5e-8..4e-6 band once the true residual is below the
     defect noise).  Exact f64 block values cost nothing here: ``hi + lo`` IS
-    the f64 operator, and the stencil carries only O(bw) blocks.  Emulated
-    f64 on the VPU is ~100x slower per op than f32, but one defect per outer
-    cycle is ~seconds at 1e8 DoF.
+    the f64 operator, and the stencil carries only O(bw) blocks.
 
     Memory: the join to f64 happens PER CHUNK inside the serialized loop and
     the result is split back to (hi, lo) per chunk — no full-length f64
-    buffer ever exists (each would be 1.6 GB at 1e8 DoF; three of them plus
-    the f32 working set OOMed the v5e)."""
+    buffer ever exists (each would be 0.8 GB at 1e8 DoF)."""
     n = a.n
     bs = x_ff.hi.shape[0]
 
@@ -430,10 +418,6 @@ def f64_bt_defect_stencil(a: BTFFStencil, x_ff: FF, b_ff: FF) -> FF:
     def join(hi, lo):
         return hi.astype(jnp.float64) + lo.astype(jnp.float64)
 
-    def split(r):
-        hi = r.astype(jnp.float32)
-        return hi, (r - hi.astype(jnp.float64)).astype(jnp.float32)
-
     def body(c, out):
         o_hi, o_lo = out
         xw = join(
@@ -444,7 +428,7 @@ def f64_bt_defect_stencil(a: BTFFStencil, x_ff: FF, b_ff: FF) -> FF:
             jax.lax.dynamic_slice(b_ff.hi, (0, c * m), (bs, m)),
             jax.lax.dynamic_slice(b_ff.lo, (0, c * m), (bs, m)),
         )
-        r_hi, r_lo = split(defect_win(mid, xw, bww, m))
+        r_hi, r_lo = ff_split(defect_win(mid, xw, bww, m))
         o_hi = jax.lax.dynamic_update_slice(o_hi, r_hi, (0, c * m))
         o_lo = jax.lax.dynamic_update_slice(o_lo, r_lo, (0, c * m))
         return o_hi, o_lo
@@ -470,14 +454,14 @@ def f64_bt_defect_stencil(a: BTFFStencil, x_ff: FF, b_ff: FF) -> FF:
     xw = jnp.concatenate(
         [zcol, join(x_ff.hi[:, : w + 1], x_ff.lo[:, : w + 1])], axis=1
     )  # halo: 0 | x[0..w]
-    r_l_hi, r_l_lo = split(
+    r_l_hi, r_l_lo = ff_split(
         defect_win(bl, xw, join(b_ff.hi[:, :w], b_ff.lo[:, :w]), w)
     )
     br = mk(bcast(mid, w - bw), right)
     xw = jnp.concatenate(
         [join(x_ff.hi[:, n - w - 1 :], x_ff.lo[:, n - w - 1 :]), zcol], axis=1
     )  # x[n-w-1..] | 0
-    r_r_hi, r_r_lo = split(
+    r_r_hi, r_r_lo = ff_split(
         defect_win(br, xw, join(b_ff.hi[:, n - w :], b_ff.lo[:, n - w :]), w)
     )
 
@@ -503,8 +487,8 @@ def cg_band_split(band: jax.Array) -> CgBandFF:
 def ff_cg_defect(a: CgBandFF, x: FF, b: FF) -> FF:
     """``r = b - A x`` for a scalar-banded CG operator in float-float.
 
-    Mirrors :func:`ops.cg_operator.cg_matvec`: 2p+1 shifted MACs, each fenced
-    like :func:`_contract_ff` (same XLA:CPU reassociation hazard)."""
+    Mirrors :func:`ops.cg_operator.cg_matvec`: 2p+1 shifted MACs, fenced
+    like :func:`_contract_ff` when :data:`FENCE_EFT` is set."""
     p = a.hi.shape[0] // 2
     acc = b
     for off in range(-p, p + 1):
@@ -531,7 +515,7 @@ def ff_defect(a, x: FF, b: FF) -> FF:
 def ff_norm(x: FF) -> jax.Array:
     """2-norm of a float-float vector, returned as f64.
 
-    One emulated-f64 pass over the vector (join + square + sum); a negligible
+    One f64 pass over the vector (join + square + sum); a negligible
     fraction of the defect cost, and the norm must be exact to f64 because the
     solver's convergence test compares it against ``tol * ||b||``."""
     v = ff_join(x).reshape(-1)

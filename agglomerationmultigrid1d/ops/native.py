@@ -3,15 +3,18 @@
 The reference leans on native LAPACK/UMFPACK through Julia for its setup
 factorizations (SURVEY §2.9); our host-side setup equivalents (batched tiny
 inverses, block-tridiagonal products) get the same treatment: a small C++
-library loaded via ctypes, with transparent NumPy fallbacks when the library
-has not been built.  Build with ``make -C native`` (or it is built lazily on
-first use if a compiler is available).
+library loaded via ctypes, with transparent NumPy fallbacks when it cannot be
+built.  The library is compiled on first use on the machine that runs it, into
+``native/build/`` under a name keyed by the source, the compile flags, the
+architecture and the host CPU, so a binary built elsewhere is never loaded.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 
@@ -20,22 +23,33 @@ import numpy as np
 _LIB = None
 _LOCK = threading.Lock()
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SO_PATH = os.path.join(_REPO_ROOT, "native", "libaggmg_native.so")
 _SRC_PATH = os.path.join(_REPO_ROOT, "native", "aggmg_native.cpp")
+_FLAGS = ["-O3", "-shared", "-fPIC"]
 
 
-def _try_build() -> bool:
-    if not os.path.exists(_SRC_PATH):
-        return False
+def _so_path() -> str:
+    from .. import _cpu_fingerprint
+
+    h = hashlib.sha1(" ".join(_FLAGS).encode())
+    with open(_SRC_PATH, "rb") as f:
+        h.update(f.read())
+    key = f"{platform.machine()}-{_cpu_fingerprint()}-{h.hexdigest()[:12]}"
+    return os.path.join(_REPO_ROOT, "native", "build", f"libaggmg_native-{key}.so")
+
+
+def _try_build(so_path: str) -> bool:
+    os.makedirs(os.path.dirname(so_path), exist_ok=True)
+    tmp = f"{so_path}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC", _SRC_PATH, "-o", _SO_PATH],
+            ["g++", *_FLAGS, _SRC_PATH, "-o", tmp],
             check=True,
             capture_output=True,
             timeout=120,
         )
+        os.replace(tmp, so_path)  # atomic: concurrent test workers may race
         return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
         return False
 
 
@@ -47,11 +61,15 @@ def _load():
         if os.environ.get("AGGMG_NO_NATIVE"):
             _LIB = False
             return _LIB
-        if not os.path.exists(_SO_PATH) and not _try_build():
+        if not os.path.exists(_SRC_PATH):
+            _LIB = False
+            return _LIB
+        so_path = _so_path()
+        if not os.path.exists(so_path) and not _try_build(so_path):
             _LIB = False
             return _LIB
         try:
-            lib = ctypes.CDLL(_SO_PATH)
+            lib = ctypes.CDLL(so_path)
             lib.aggmg_batched_inv.restype = ctypes.c_int64
             lib.aggmg_batched_inv.argtypes = [
                 ctypes.POINTER(ctypes.c_double), ctypes.c_int64, ctypes.c_int64,

@@ -1,19 +1,15 @@
 from .block_kernels import (
     chebyshev_coefficients,
+    kernel_halo,
     pallas_block_jacobi_multisweep,
-    pallas_block_jacobi_multisweep_residual,
-    pallas_block_jacobi_sweep,
-    pallas_bt_matvec,
     pallas_chebyshev_multisweep,
-    pallas_ff_stencil_mid_defect,
+    use_multisweep_kernel,
 )
 
 __all__ = [
     "chebyshev_coefficients",
+    "kernel_halo",
     "pallas_block_jacobi_multisweep",
-    "pallas_block_jacobi_multisweep_residual",
-    "pallas_block_jacobi_sweep",
-    "pallas_bt_matvec",
     "pallas_chebyshev_multisweep",
-    "pallas_ff_stencil_mid_defect",
+    "use_multisweep_kernel",
 ]

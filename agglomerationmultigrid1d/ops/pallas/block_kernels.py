@@ -1,365 +1,90 @@
-"""Pallas TPU kernels for the hot block-level ops.
+"""Fused smoother kernels for the V-cycle's hot loop (Pallas, Triton route).
 
-The V-cycle's hot loop is the damped block-Jacobi sweep
-``x += alpha * Binv (b - A x)`` with A block-tridiagonal in SoA layout
-(bs, bs, n).  XLA already fuses the jnp einsum formulation well; the Pallas
-version fuses the *entire* sweep (matvec + residual + block solve + axpy) into
-one pass over HBM, reading each operand exactly once per tile — the
-speed-of-light formulation for this memory-bound kernel.
+The V-cycle applies ``n_pre`` (= 3) smoother sweeps back to back on every
+block level.  Each sweep is memory-bound, so these kernels fuse all the sweeps
+into ONE pass over device memory: every program loads a window of the operator
+streams once, iterates the sweeps on it in registers, and writes the centre of
+the window (trapezoidal temporal blocking).  After sweep ``s`` only window
+columns ``[s, W - s)`` are exact, so a halo of ``n_steps`` (+1 for the emitted
+residual) columns per side keeps the written centre exact.
 
-Neighbor access: each grid tile reads its own x block plus the two adjacent
-blocks (clamped index maps); the halo columns are spliced in with lane rolls +
-masked selects, so no manual DMA is needed.
+The sweeps run in *M-form*.  The block-Jacobi smoother ``S`` is exactly the
+block diagonal of ``A`` (``S^-1 A_D = I``), so the damped sweep is
 
-These kernels are dtype-generic but intended for the f32 fast path; f64 parity
-runs stay on the XLA path (`ops.block_tridiag`).
+    x' = x + alpha S^-1 (b - A x) = x + alpha (c - x - ML x_{-1} - MU x_{+1}),
+
+with ``c = S^-1 b`` (computed once per launch) and ``ML = S^-1 A_lower``,
+``MU = S^-1 A_upper`` (precomputed at setup).  That reads three operator
+streams instead of four and does half the block contractions.  The optional
+restrict-side residual also reads ``A_D`` and uses
+``A x = A_D (x + ML x_{-1} + MU x_{+1})``.
+
+REQUIREMENT: ``s_inv`` must be the exact inverse of ``a.diag`` (what
+``smoothers.dg_smoother(a, "blockJac")`` produces).  A mismatched
+preconditioner would silently smooth with ``S = A_D``.
+
+Layout on the card: a program owns ``tile = W - 2 * halo`` output columns and
+loads a power-of-two window of ``W`` columns around them with masked loads at
+an offset into the whole-array refs; nothing outside ``[0, n)`` is read.  The
+bs x bs contractions are unrolled in registers.  Triton has no register shift,
+so the +-1 neighbour columns of the updated iterate come from a per-program
+scratch window in global memory (store, barrier, two shifted loads), which
+stays in L1/L2 while the program runs.  That scratch is an extra output of
+``(grid, bs, W + 2)`` f32, about 1.04 times the size of the iterate (70 MB at
+bs = 4, n = 2^22; 419 MB at bs = 2, n = 3 * 2^24), allocated on every call;
+what of it is written back to device memory is not measured.  Shard ghosts
+(``ghosts=(gops, gvec)``) fill the window columns beyond ``[0, n)`` under
+``shard_map``; without them those columns are zero, which is the global
+zero-Dirichlet boundary.
+
+Which inputs take the kernel and which take XLA is decided by
+:func:`use_multisweep_kernel` alone; :func:`on_gpu` then sends the program to
+the kernel where it is lowered for a GPU and to the XLA sweeps elsewhere.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from ..block_tridiag import BlockTridiag, block_mul, bt_matvec
+from ..block_tridiag import BlockTridiag, block_mul
 
-try:  # x64 tracing poisons Mosaic with i64 scalars (kernels are f32-only anyway)
-    from jax._src.config import enable_x64 as _enable_x64
-except ImportError:  # pragma: no cover
-    _enable_x64 = None
-
-
-def _x32_scope():
-    return _enable_x64(False) if _enable_x64 is not None else contextlib.nullcontext()
-
-
-def _pick_tile(bs: int, n: int, dtype, vmem_budget=6 * 1024 * 1024) -> int:
-    """Largest power-of-two tile with 4 block operands + 5 vectors in budget."""
-    bpe = jnp.dtype(dtype).itemsize
-    per_lane = (4 * bs * bs + 5 * bs) * bpe * 2  # x2: double buffering
-    tile = 1 << 20
-    while tile > 128 and (tile * per_lane > vmem_budget or n % tile != 0):
-        tile //= 2
-    return tile
+# Block sizes the kernel was measured at: the DG p = 1 / agglomerated p = 1
+# levels (bs = 2) and the DG p = 3 level (bs = 4).  Others take XLA.
+KERNEL_BLOCK_SIZES = (2, 4)
+# Window width (power of two) and warps per program: one window column per
+# thread.  Chosen on an H100 over W in {128..1024} x warps in {2..16} at both
+# kernel shapes of ``chip_smoke.py`` phase 2 (W = 256 with 8 warps was the
+# fastest or within 2% of it; 2-4x slower configurations spill registers).
+WINDOW = 256
+NUM_WARPS = 8
 
 
-def _neighbor_splice(xc, xl, xr, i, ni):
-    """Build x_{k-1} and x_{k+1} lane vectors for this tile."""
-    bs, t = xc.shape
-    col = jax.lax.broadcasted_iota(jnp.int32, (bs, t), 1)
-    xm = pltpu.roll(xc, jnp.int32(1), axis=1)
-    left_col = jnp.where(i == 0, jnp.zeros((bs, 1), xc.dtype), xl[:, t - 1 : t])
-    xm = jnp.where(col == 0, left_col, xm)
-    xp = pltpu.roll(xc, jnp.int32(t - 1), axis=1)  # circular -1 (shift must be >= 0 i32)
-    right_col = jnp.where(i == ni - 1, jnp.zeros((bs, 1), xc.dtype), xr[:, 0:1])
-    xp = jnp.where(col == t - 1, right_col, xp)
-    return xm, xp
+def use_multisweep_kernel(bs: int, n: int, dtype, min_blocks: int = 0) -> bool:
+    """Whether a smoother pass on a ``(bs, n)`` level of ``dtype`` takes the
+    fused kernel (True) or the plain XLA sweeps (False).  ``min_blocks`` is
+    the caller's size threshold (the solvers' int ``use_pallas``)."""
+    return jnp.dtype(dtype) == jnp.float32 and bs in KERNEL_BLOCK_SIZES and n >= min_blocks
 
 
-def _contract(mat_ref, vec, bs):
-    """y[i, :] = sum_j mat[i, j, :] * vec[j, :] — bs unrolled VPU FMAs."""
-    acc = mat_ref[:, 0, :] * vec[0:1, :]
-    for j in range(1, bs):
-        acc = acc + mat_ref[:, j, :] * vec[j : j + 1, :]
-    return acc
+def on_gpu(kernel, xla, *args, interpret: bool = False):
+    """``kernel(*args)`` in a program lowered for an NVIDIA GPU, ``xla(*args)``
+    on any other platform: the Triton kernel lowers only there.  The branch
+    is picked when the program is lowered for its device, and the other one
+    is dropped.  With ``interpret`` set (tests only) it always takes
+    ``kernel``."""
+    if interpret:
+        return kernel(*args)
+    return jax.lax.platform_dependent(*args, cuda=kernel, default=xla)
 
 
-def _sweep_kernel(ad, al, au, binv, xc, xl, xr, b, out, *, alpha, bs):
-    i = pl.program_id(0)
-    ni = pl.num_programs(0)
-    x = xc[...]
-    xm, xp = _neighbor_splice(x, xl[...], xr[...], i, ni)
-    r = b[...] - _contract(ad, x, bs) - _contract(al, xm, bs) - _contract(au, xp, bs)
-    out[...] = x + alpha * _contract(binv, r, bs)
-
-
-def _matvec_kernel(ad, al, au, xc, xl, xr, out, *, bs):
-    i = pl.program_id(0)
-    ni = pl.num_programs(0)
-    x = xc[...]
-    xm, xp = _neighbor_splice(x, xl[...], xr[...], i, ni)
-    out[...] = _contract(ad, x, bs) + _contract(al, xm, bs) + _contract(au, xp, bs)
-
-
-def _specs(bs: int, tile: int):
-    spec3 = pl.BlockSpec((bs, bs, tile), lambda i: (0, 0, i), memory_space=pltpu.VMEM)
-    specv = pl.BlockSpec((bs, tile), lambda i: (0, i), memory_space=pltpu.VMEM)
-    specl = pl.BlockSpec(
-        (bs, tile), lambda i: (0, jnp.maximum(i - 1, 0)), memory_space=pltpu.VMEM
-    )
-    specr = pl.BlockSpec(
-        (bs, tile),
-        lambda i: (0, jnp.minimum(i + 1, pl.num_programs(0) - 1)),
-        memory_space=pltpu.VMEM,
-    )
-    return spec3, specv, specl, specr
-
-
-@functools.partial(jax.jit, static_argnames=("alpha", "interpret"))
-def pallas_block_jacobi_sweep(
-    a: BlockTridiag, s_inv: jax.Array, x: jax.Array, b: jax.Array,
-    alpha: float = 2.0 / 3.0, interpret: bool = False,
-) -> jax.Array:
-    """Fused ``x + alpha * s_inv (b - A x)``; falls back to XLA for awkward n."""
-    bs, _, n = a.diag.shape
-    tile = _pick_tile(bs, n, x.dtype)
-    if x.dtype != jnp.float32 or n % tile != 0 or n < 2 * tile:
-        # f64 (parity mode) and awkward sizes take the XLA path; Mosaic is f32-only
-        from ...smoothers.smoother import BlockJacobiSmoother, apply_smoother
-
-        return x + apply_smoother(BlockJacobiSmoother(inv=s_inv), b - bt_matvec(a, x), alpha)
-
-    spec3, specv, specl, specr = _specs(bs, tile)
-    kernel = functools.partial(_sweep_kernel, alpha=alpha, bs=bs)
-    with _x32_scope():
-        return pl.pallas_call(
-            kernel,
-            grid=(n // tile,),
-            in_specs=[spec3, spec3, spec3, spec3, specv, specl, specr, specv],
-            out_specs=specv,
-            out_shape=jax.ShapeDtypeStruct((bs, n), x.dtype),
-            interpret=interpret,
-        )(a.diag, a.lower, a.upper, s_inv, x, x, x, b)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def pallas_bt_matvec(a: BlockTridiag, x: jax.Array, interpret: bool = False) -> jax.Array:
-    """Block-tridiagonal matvec as a single-pass Pallas kernel."""
-    bs, _, n = a.diag.shape
-    tile = _pick_tile(bs, n, x.dtype)
-    if x.dtype != jnp.float32 or n % tile != 0 or n < 2 * tile:
-        return bt_matvec(a, x)
-
-    spec3, specv, specl, specr = _specs(bs, tile)
-    kernel = functools.partial(_matvec_kernel, bs=bs)
-    with _x32_scope():
-        return pl.pallas_call(
-            kernel,
-            grid=(n // tile,),
-            in_specs=[spec3, spec3, spec3, specv, specl, specr],
-            out_specs=specv,
-            out_shape=jax.ShapeDtypeStruct((bs, n), x.dtype),
-            interpret=interpret,
-        )(a.diag, a.lower, a.upper, x, x, x)
-
-
-# ---------------------------------------------------------------------------
-# Temporally-fused multi-sweep kernel (damped-Jacobi M-form)
-# ---------------------------------------------------------------------------
-#
-# The V-cycle applies nPre (= 3) smoother sweeps back to back.  Each sweep is
-# memory-bound, so fusing k sweeps into one pass over HBM — loading every
-# operand once with a k-wide halo and iterating locally (trapezoidal temporal
-# blocking) — multiplies the effective sweep throughput by ~k.  After sweep s
-# only the inner T + 2(h - s) columns of the widened tile are valid; with halo
-# h >= k the written center T columns are exact.
-#
-# The sweeps run in *M-form*: because the block-Jacobi smoother S is exactly
-# the block diagonal of A (S^-1 A_D = I by construction), the damped sweep
-#
-#     x' = x + alpha S^-1 (b - A x)
-#        = x + alpha * (c - x - ML x_{-1} - MU x_{+1}),
-#
-# with  c  = S^-1 b        (sweep-invariant, computed once per launch),
-#       ML = S^-1 A_lower, MU = S^-1 A_upper   (precomputed at setup).
-#
-# vs. the naive formulation this drops one operator stream (3 instead of 4:
-# 240 B/block instead of 304) AND halves the per-sweep block contractions
-# (8 FMAs instead of 16: the diagonal term is the identity) — both the HBM
-# floor and the VPU time of the temporally-blocked pass improve.  The
-# restrict-side residual (emit_residual) streams A_D additionally and uses
-# A x = A_D (x + ML x_{-1} + MU x_{+1}).
-#
-# REQUIREMENT: ``s_inv`` must be the exact inverse of ``a.diag`` (what
-# ``smoothers.dg_smoother(a, "blockJac")`` produces).  A mismatched
-# preconditioner would silently smooth with S = A_D regardless.
-
-
-def _seg_ops(gops, gvec, op_tiles, xc, xl, xr, bc, bl, br, i, ni, halo):
-    """Per-segment operands: operator streams stay in (left, center, right)
-    segments — NO (bs, bs, w) concatenation, which would copy every operator
-    element through the VPU — while x and b widen into (bs, w) vectors (cheap).
-    Edge programs take the shard ghosts for their outer halo segment; zero
-    ghosts reproduce the global zero-Dirichlet boundary exactly."""
-    segs = []
-    for s, (c, l, r) in enumerate(op_tiles):
-        lft = jnp.where(i == 0, gops[s, :, :, 0:halo], l[...])
-        rgt = jnp.where(i == ni - 1, gops[s, :, :, halo:], r[...])
-        segs.append((lft, c[...], rgt))
-    xlft = jnp.where(i == 0, gvec[0, :, 0:halo], xl[...])
-    xrgt = jnp.where(i == ni - 1, gvec[0, :, halo:], xr[...])
-    blft = jnp.where(i == 0, gvec[1, :, 0:halo], bl[...])
-    brgt = jnp.where(i == ni - 1, gvec[1, :, halo:], br[...])
-    xw = jnp.concatenate([xlft, xc[...], xrgt], axis=-1)
-    bw = jnp.concatenate([blft, bc[...], brgt], axis=-1)
-    return segs, xw, bw
-
-
-def _mat(m, v, bs):
-    acc = m[:, 0, :] * v[0:1, :]
-    for j in range(1, bs):
-        acc = acc + m[:, j, :] * v[j : j + 1, :]
-    return acc
-
-
-def _seg_apply(op_segs, xw, bs, halo, tile):
-    """Apply segmented operators to the matching slices of a widened vector."""
-    lo, c, r = op_segs
-    return (
-        _mat(lo, xw[:, 0:halo], bs),
-        _mat(c, xw[:, halo : halo + tile], bs),
-        _mat(r, xw[:, halo + tile :], bs),
-    )
-
-
-def _seg_cat(op_segs, xw, bs, halo, tile):
-    """Segmented operator application, re-concatenated to the widened shape."""
-    return jnp.concatenate(_seg_apply(op_segs, xw, bs, halo, tile), axis=-1)
-
-
-def _wide_shift(xw, col, w):
-    """Zero-padded +-1 column shifts of the widened iterate.  The outermost
-    window columns use a zero (wrapped-and-masked) neighbor — corrupted by
-    design; corruption moves one column inward per sweep, so the center stays
-    exact for n_sweeps <= halo."""
-    xm = pltpu.roll(xw, jnp.int32(1), axis=1)
-    xm = jnp.where(col == 0, 0.0, xm)
-    xp = pltpu.roll(xw, jnp.int32(w - 1), axis=1)
-    xp = jnp.where(col == w - 1, 0.0, xp)
-    return xm, xp
-
-
-def _seg_offdiag(ml, mu, xw, col, bs, halo, tile, w):
-    """``ML x_{-1} + MU x_{+1}`` on the widened window, segment-wise."""
-    xm, xp = _wide_shift(xw, col, w)
-    l = _seg_apply(ml, xm, bs, halo, tile)
-    u = _seg_apply(mu, xp, bs, halo, tile)
-    return jnp.concatenate([l[0] + u[0], l[1] + u[1], l[2] + u[2]], axis=-1)
-
-
-def _center_residual(ml, mu, ad, xw, bw, col, bs, halo, tile, w):
-    """Center-tile residual ``b - A_D (x + ML x_{-1} + MU x_{+1})`` — only the
-    written columns need it, so only the center segment is contracted."""
-    xm, xp = _wide_shift(xw, col, w)
-    ctr = slice(halo, halo + tile)
-    t = (
-        xw[:, ctr]
-        + _mat(ml[1], xm[:, ctr], bs)
-        + _mat(mu[1], xp[:, ctr], bs)
-    )
-    return bw[:, ctr] - _mat(ad[1], t, bs)
-
-
-def _wide_sweep_kernel(
-    gops, gvec, *refs, alpha, bs, n_sweeps, halo, tile, emit_residual=False,
-):
-    """Temporally-blocked M-form multisweep, segment-wise (see :func:`_seg_ops`).
-
-    ``refs`` = 3 segments each of (ML, MU, S^-1 [, A_D if emit_residual]),
-    then x, b segments, then the output ref(s).
-
-    ``gops``/``gvec`` are *shard ghosts*: ``gops[s, :, :, :halo]`` is the left
-    neighbor shard's last ``halo`` operator columns for stream s (ML, MU,
-    S^-1 [, A_D]) and ``[..., halo:]`` the right neighbor's first columns;
-    ``gvec[0/1]`` likewise for x and b.  Zero ghosts reproduce the global
-    zero-Dirichlet boundary exactly (c, the off-diagonal term and the iterate
-    all vanish in the ghost region), so the single-device path passes zeros;
-    under ``shard_map`` the wrapper fills them with one ``ppermute`` per side
-    and the center ``tile`` columns are exact for ``n_sweeps <= halo``.
-    """
-    i = pl.program_id(0)
-    ni = pl.num_programs(0)
-    w = tile + 2 * halo
-    n_ops = 4 if emit_residual else 3
-    op_refs = [tuple(refs[3 * s : 3 * s + 3]) for s in range(n_ops)]
-    xc, xl, xr, bc, bl, br = refs[3 * n_ops : 3 * n_ops + 6]
-    outs = refs[3 * n_ops + 6 :]
-
-    segs, xw, bw = _seg_ops(gops, gvec, op_refs, xc, xl, xr, bc, bl, br, i, ni, halo)
-    ml, mu, si = segs[0], segs[1], segs[2]
-    col = jax.lax.broadcasted_iota(jnp.int32, (bs, w), 1)
-
-    cw = _seg_cat(si, bw, bs, halo, tile)  # c = S^-1 b, once per launch
-    for _ in range(n_sweeps):
-        t = _seg_offdiag(ml, mu, xw, col, bs, halo, tile, w)
-        xw = xw + alpha * (cw - xw - t)
-
-    outs[0][...] = xw[:, halo : halo + tile]
-    if emit_residual:
-        # A_D/ML/MU are already resident: one more in-register residual saves
-        # the separate full-HBM-pass matvec of the V-cycle's restrict step.
-        # After n_sweeps the widened iterate is valid on [n_sweeps, w - n_sweeps),
-        # so the center residual (needing +-1 columns) is exact for halo > n_sweeps.
-        outs[1][...] = _center_residual(ml, mu, segs[3], xw, bw, col, bs, halo, tile, w)
-
-
-def _halo_specs(bs: int, tile: int, halo: int):
-    """Center + left/right halo BlockSpecs (halo must divide tile)."""
-    ratio = tile // halo
-
-    def mk(shape_c, shape_h):
-        c = pl.BlockSpec(shape_c, lambda i: (0,) * (len(shape_c) - 1) + (i,),
-                         memory_space=pltpu.VMEM)
-        l = pl.BlockSpec(
-            shape_h,
-            lambda i: (0,) * (len(shape_h) - 1) + (jnp.maximum(i * ratio - 1, 0),),
-            memory_space=pltpu.VMEM,
-        )
-        r = pl.BlockSpec(
-            shape_h,
-            lambda i: (0,) * (len(shape_h) - 1)
-            + (jnp.minimum(i * ratio + ratio, pl.num_programs(0) * ratio - 1),),
-            memory_space=pltpu.VMEM,
-        )
-        return c, l, r
-
-    mat_specs = mk((bs, bs, tile), (bs, bs, halo))
-    vec_specs = mk((bs, tile), (bs, halo))
-    return mat_specs, vec_specs
-
-
-def _wide_cheb_kernel(
-    coef, gops, gvec, *refs, bs, degree, halo, tile, emit_residual=False,
-):
-    """Temporally-blocked M-form Chebyshev smoothing: all ``degree`` steps of
-    the three-term recurrence in one HBM pass (same widened-tile validity
-    argument as ``_wide_sweep_kernel``; each step consumes one halo column per
-    side).
-
-    ``coef`` is a (degree, 2) SMEM array: step i does
-    ``z = S^-1 (b - A x) = c - x - ML x_{-1} - MU x_{+1};
-    d = coef[i,0] * d + coef[i,1] * z; x += d``  (S = A_D exactly — see the
-    module-level M-form note).  ``refs`` layout and ``gops``/``gvec`` as in
-    ``_wide_sweep_kernel``; note the Chebyshev correction ``d`` starts at zero
-    in the ghost region, matching the neighbor's own recurrence exactly (d is
-    a pure function of the initial x/b in the +-degree neighborhood, which the
-    ghosts supply)."""
-    i = pl.program_id(0)
-    ni = pl.num_programs(0)
-    w = tile + 2 * halo
-    n_ops = 4 if emit_residual else 3
-    op_refs = [tuple(refs[3 * s : 3 * s + 3]) for s in range(n_ops)]
-    xc, xl, xr, bc, bl, br = refs[3 * n_ops : 3 * n_ops + 6]
-    outs = refs[3 * n_ops + 6 :]
-
-    segs, xw, bw = _seg_ops(gops, gvec, op_refs, xc, xl, xr, bc, bl, br, i, ni, halo)
-    ml, mu, si = segs[0], segs[1], segs[2]
-    col = jax.lax.broadcasted_iota(jnp.int32, (bs, w), 1)
-
-    cw = _seg_cat(si, bw, bs, halo, tile)  # c = S^-1 b, once per launch
-    d = jnp.zeros_like(xw)
-    for s in range(degree):
-        z = cw - xw - _seg_offdiag(ml, mu, xw, col, bs, halo, tile, w)
-        d = coef[s, 0] * d + coef[s, 1] * z
-        xw = xw + d
-
-    outs[0][...] = xw[:, halo : halo + tile]
-    if emit_residual:
-        outs[1][...] = _center_residual(ml, mu, segs[3], xw, bw, col, bs, halo, tile, w)
+def kernel_halo(n_steps: int, emit_residual: bool) -> int:
+    """Halo columns per side (and shard-ghost width) the fused pass needs."""
+    return n_steps + (1 if emit_residual else 0)
 
 
 def chebyshev_coefficients(lam_lo, lam_hi, degree: int):
@@ -378,32 +103,103 @@ def chebyshev_coefficients(lam_lo, lam_hi, degree: int):
     return jnp.stack(rows).astype(jnp.float32)
 
 
-def multisweep_shapes_ok(bs: int, n: int, dtype, n_steps: int) -> bool:
-    """Whether the temporally-blocked kernels support these (local) shapes —
-    the ghosted shard_map path must decide statically before calling."""
-    halo = 128
-    tile = _pick_tile(bs, n, dtype)
-    return (
-        jnp.dtype(dtype) == jnp.float32
-        and n_steps < halo
-        and tile % halo == 0
-        and n % tile == 0
-        and n >= 2 * tile
-    )
+def _mat(m, v):
+    """``y[r] = sum_c m[r][c] * v[c]`` over lists of (W,) vectors."""
+    out = []
+    for row in m:
+        acc = row[0] * v[0]
+        for c in range(1, len(v)):
+            acc = acc + row[c] * v[c]
+        out.append(acc)
+    return out
 
 
-def _zero_ghosts(bs: int, halo: int, dtype, n_ops: int):
-    return (
-        jnp.zeros((n_ops, bs, bs, 2 * halo), dtype),
-        jnp.zeros((2, bs, 2 * halo), dtype),
-    )
+def _multisweep_kernel(*refs, bs, n, steps, alpha, halo, width, emit_residual,
+                       chebyshev, ghosted, barrier):
+    """One window: load the operator streams once, run ``steps`` M-form sweeps
+    (damped Jacobi, or Chebyshev with ``coef``), write the centre columns.
+
+    ``refs`` = [coef,] [gops, gvec,] ML, MU, S^-1 [, A_D], x, b, out [, res],
+    scratch."""
+    refs = list(refs)
+    coef = refs.pop(0) if chebyshev else None
+    gops, gvec = (refs.pop(0), refs.pop(0)) if ghosted else (None, None)
+    n_ops = 4 if emit_residual else 3
+    op_refs, (x_ref, b_ref), outs = refs[:n_ops], refs[n_ops:n_ops + 2], refs[n_ops + 2:]
+    scratch = outs.pop()
+
+    i = pl.program_id(0)
+    tile = width - 2 * halo
+    start = i * tile - halo
+    j = jax.lax.broadcasted_iota(jnp.int32, (width,), 0)
+    col = start + j
+    inside = (col >= 0) & (col < n)
+    left = (col < 0) & (col >= -halo)
+    right = (col >= n) & (col < n + halo)
+
+    def load(ref, idx, g_ref=None, g_idx=()):
+        v = plgpu.load(ref.at[idx + (col,)], mask=inside, other=0.0)
+        if g_ref is not None:
+            # ghost columns: [0, halo) left neighbour, [halo, 2 halo) right
+            v += plgpu.load(g_ref.at[g_idx + (col + halo,)], mask=left, other=0.0)
+            v += plgpu.load(g_ref.at[g_idx + (col + halo - n,)], mask=right, other=0.0)
+        return v
+
+    def load_vec(ref, k):
+        return [load(ref, (r,), gvec, (k, r)) for r in range(bs)]
+
+    def load_op(ref, s):
+        return [[load(ref, (r, c), gops, (s, r, c)) for c in range(bs)] for r in range(bs)]
+
+    def shifted(v):
+        """(v_{-1}, v_{+1}) across the window: zero beyond its ends."""
+        # 32-bit starts: interpret mode discharges these with x64 on
+        at = lambda r, k: scratch.at[i, r, pl.ds(jnp.int32(k), width)]  # noqa: E731
+        for r in range(bs):
+            plgpu.store(at(r, 1), v[r])
+        barrier()
+        vm = [plgpu.load(at(r, 0), mask=j >= 1, other=0.0) for r in range(bs)]
+        vp = [plgpu.load(at(r, 2), mask=j < width - 1, other=0.0) for r in range(bs)]
+        barrier()
+        return vm, vp
+
+    def offdiag(v):
+        """``ML v_{-1} + MU v_{+1}``."""
+        vm, vp = shifted(v)
+        return [lo + up for lo, up in zip(_mat(ml, vm), _mat(mu, vp))]
+
+    ml, mu, si = (load_op(op_refs[s], s) for s in range(3))
+    x = load_vec(x_ref, 0)
+    b = load_vec(b_ref, 1)
+    c = _mat(si, b)
+    if chebyshev:
+        d = [jnp.zeros_like(v) for v in x]
+        for s in range(steps):
+            t = offdiag(x)
+            cd, cz = coef[s, 0], coef[s, 1]
+            d = [cd * d[r] + cz * (c[r] - x[r] - t[r]) for r in range(bs)]
+            x = [x[r] + d[r] for r in range(bs)]
+    else:
+        for _ in range(steps):
+            t = offdiag(x)
+            x = [x[r] + alpha * (c[r] - x[r] - t[r]) for r in range(bs)]
+
+    written = (j >= halo) & (j < width - halo) & (col < n)
+    for r in range(bs):
+        plgpu.store(outs[0].at[r, col], x[r], mask=written)
+    if emit_residual:
+        ad = load_op(op_refs[3], 3)
+        t = offdiag(x)
+        ax = _mat(ad, [x[r] + t[r] for r in range(bs)])
+        for r in range(bs):
+            plgpu.store(outs[1].at[r, col], b[r] - ax[r], mask=written)
 
 
 def _mform_ops(a: BlockTridiag, s_inv: jax.Array, ml, mu):
     """``ML = S^-1 A_lower``, ``MU = S^-1 A_upper`` — precomputed at setup by
     ``smoothers.dg_smoother`` / ``hierarchy.prepare_fast_smoothers`` and passed
-    through; computed on the fly (one batched einsum each per call) only when a
-    caller doesn't supply them."""
+    through; computed here (one batched einsum each) only when a caller does
+    not supply them."""
     if ml is None:
         ml = block_mul(s_inv, a.lower)
     if mu is None:
@@ -411,11 +207,46 @@ def _mform_ops(a: BlockTridiag, s_inv: jax.Array, ml, mu):
     return ml, mu
 
 
-def _ghost_specs():
-    """Full-array VMEM specs for the shard-ghost inputs (constant index map)."""
-    g_ops = pl.BlockSpec(memory_space=pltpu.VMEM)
-    g_vec = pl.BlockSpec(memory_space=pltpu.VMEM)
-    return g_ops, g_vec
+def _fused_pass(a, s_inv, x, b, *, steps, alpha, coef, emit_residual, ghosts,
+                ml, mu, interpret):
+    bs, _, n = a.diag.shape
+    if x.dtype != jnp.float32 or bs & (bs - 1):
+        raise ValueError(
+            f"fused multisweep needs f32 and a power-of-two block size "
+            f"(got dtype={x.dtype}, bs={bs}); route through use_multisweep_kernel"
+        )
+    halo = kernel_halo(steps, emit_residual)
+    width = WINDOW
+    tile = width - 2 * halo
+    grid = pl.cdiv(n, tile)
+    ml, mu = _mform_ops(a, s_inv, ml, mu)
+    ops = (ml, mu, s_inv) + ((a.diag,) if emit_residual else ())
+    args = ([coef] if coef is not None else []) + (list(ghosts) if ghosts else [])
+    args += list(ops) + [x, b]
+    vec = jax.ShapeDtypeStruct((bs, n), x.dtype)
+    out_shape = [vec, vec] if emit_residual else [vec]
+    out_shape.append(jax.ShapeDtypeStruct((grid, bs, width + 2), x.dtype))
+    kernel = functools.partial(
+        _multisweep_kernel, bs=bs, n=n, steps=steps, alpha=alpha, halo=halo,
+        width=width, emit_residual=emit_residual, chebyshev=coef is not None,
+        ghosted=ghosts is not None,
+        # the interpreter runs programs one at a time: no block to synchronise
+        barrier=(lambda: None) if interpret else plgpu.debug_barrier,
+    )
+    # traced with 32-bit defaults: the package enables x64, and 64-bit index
+    # scalars beside the 32-bit program id do not lower
+    with jax.enable_x64(False):
+        res = pl.pallas_call(
+            kernel,
+            out_shape=out_shape,
+            grid=(grid,),
+            backend="triton",
+            # no loop in the kernel, so nothing for software pipelining
+            compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
+            interpret=interpret,
+            name="chebyshev_multisweep" if coef is not None else "jacobi_multisweep",
+        )(*args)
+    return (res[0], res[1]) if emit_residual else res[0]
 
 
 @functools.partial(jax.jit, static_argnames=("degree", "interpret", "emit_residual"))
@@ -424,242 +255,29 @@ def pallas_chebyshev_multisweep(
     degree: int = 3, interpret: bool = False, emit_residual: bool = False,
     ghosts=None, ml=None, mu=None,
 ):
-    """All ``degree`` Chebyshev smoothing steps fused into one HBM pass
-    (optionally also emitting ``r = b - A x_new``).  ``coef`` from
-    :func:`chebyshev_coefficients`.  ``s_inv`` must be the exact inverse of
-    ``a.diag`` (the kernel runs in M-form — see the module note); ``ml``/``mu``
-    are the precomputed ``S^-1 A_lower`` / ``S^-1 A_upper`` streams.  Falls
-    back to an unfused XLA recurrence for awkward shapes/dtypes.
-    ``ghosts = (gops, gvec)`` supplies neighbor shard columns under
-    ``shard_map`` (see ``_wide_sweep_kernel``); the fallback path is only
-    valid for ``ghosts=None`` (global arrays)."""
-    bs, _, n = a.diag.shape
-    halo = 128
-    tile = _pick_tile(bs, n, x.dtype)
-    if (
-        x.dtype != jnp.float32
-        or degree >= halo
-        or tile % halo != 0
-        or n % tile != 0
-        or n < 2 * tile
-    ):
-        if ghosts is not None:
-            raise ValueError(
-                "ghosted chebyshev multisweep requires f32 and tile-divisible "
-                f"local shapes (got dtype={x.dtype}, n={n}, tile={tile})"
-            )
-        d = jnp.zeros_like(x)
-        cf = coef.astype(x.dtype)
-        for s in range(degree):
-            z = jnp.einsum("ijn,jn->in", s_inv, b - bt_matvec(a, x))
-            d = cf[s, 0] * d + cf[s, 1] * z
-            x = x + d
-        if emit_residual:
-            return x, b - bt_matvec(a, x)
-        return x
-
-    ml, mu = _mform_ops(a, s_inv, ml, mu)
-    ops = (ml, mu, s_inv) + ((a.diag,) if emit_residual else ())
-    gops, gvec = _zero_ghosts(bs, halo, x.dtype, len(ops)) if ghosts is None else ghosts
-    (m_c, m_l, m_r), (v_c, v_l, v_r) = _halo_specs(bs, tile, halo)
-    g_ops_spec, g_vec_spec = _ghost_specs()
-    in_specs = (
-        [pl.BlockSpec(memory_space=pltpu.SMEM), g_ops_spec, g_vec_spec]
-        + [m_c, m_l, m_r] * len(ops)
-        + [v_c, v_l, v_r] * 2
+    """All ``degree`` Chebyshev smoothing steps fused into one pass (optionally
+    also emitting ``r = b - A x_new``).  ``coef`` from
+    :func:`chebyshev_coefficients`; ``s_inv`` must be the exact inverse of
+    ``a.diag`` (M-form); ``ml``/``mu`` are the precomputed M-form streams.
+    ``ghosts = (gops, gvec)`` supplies neighbour-shard columns under
+    ``shard_map`` (see :mod:`..parallel.sharded_kernels`)."""
+    return _fused_pass(
+        a, s_inv, x, b, steps=degree, alpha=None, coef=coef,
+        emit_residual=emit_residual, ghosts=ghosts, ml=ml, mu=mu, interpret=interpret,
     )
-    kernel = functools.partial(
-        _wide_cheb_kernel, bs=bs, degree=degree, halo=halo, tile=tile,
-        emit_residual=emit_residual,
-    )
-    args = [coef, gops, gvec]
-    for arr in ops:
-        args += [arr, arr, arr]
-    args += [x, x, x, b, b, b]
-    shape = jax.ShapeDtypeStruct((bs, n), x.dtype)
-    out_specs = [v_c, v_c] if emit_residual else v_c
-    out_shape = [shape, shape] if emit_residual else shape
-    with _x32_scope():
-        res = pl.pallas_call(
-            kernel,
-            grid=(n // tile,),
-            in_specs=in_specs,
-            out_specs=out_specs,
-            out_shape=out_shape,
-            interpret=interpret,
-        )(*args)
-    return tuple(res) if emit_residual else res
 
 
-@functools.partial(jax.jit, static_argnames=("alpha", "n_sweeps", "interpret"))
+@functools.partial(jax.jit, static_argnames=("alpha", "n_sweeps", "interpret", "emit_residual"))
 def pallas_block_jacobi_multisweep(
     a: BlockTridiag, s_inv: jax.Array, x: jax.Array, b: jax.Array,
     n_sweeps: int = 3, alpha: float = 2.0 / 3.0, interpret: bool = False,
-    ml=None, mu=None,
-) -> jax.Array:
-    """k fused damped block-Jacobi sweeps in one HBM pass (k <= 8).
-
-    ``s_inv`` must be the exact inverse of ``a.diag`` (M-form — see the module
-    note); pass the setup-time ``ml``/``mu`` streams to avoid two per-call
-    batched einsums."""
-    return _multisweep_impl(a, s_inv, x, b, n_sweeps, alpha, interpret, False,
-                            ml=ml, mu=mu)
-
-
-@functools.partial(jax.jit, static_argnames=("alpha", "n_sweeps", "interpret"))
-def pallas_block_jacobi_multisweep_residual(
-    a: BlockTridiag, s_inv: jax.Array, x: jax.Array, b: jax.Array,
-    n_sweeps: int = 3, alpha: float = 2.0 / 3.0, interpret: bool = False,
-    ml=None, mu=None,
-) -> tuple[jax.Array, jax.Array]:
-    """Like :func:`pallas_block_jacobi_multisweep` but also returns
-    ``r = b - A x_new`` computed in the same pass (the operator tiles are
-    already in VMEM), saving the V-cycle's separate restrict-side matvec."""
-    return _multisweep_impl(a, s_inv, x, b, n_sweeps, alpha, interpret, True,
-                            ml=ml, mu=mu)
-
-
-def _multisweep_impl(a, s_inv, x, b, n_sweeps, alpha, interpret, emit_residual,
-                     ghosts=None, ml=None, mu=None):
-    bs, _, n = a.diag.shape
-    halo = 128  # last-dim block sizes must be multiples of 128 on TPU
-    tile = _pick_tile(bs, n, x.dtype)
-    if (
-        x.dtype != jnp.float32
-        or n_sweeps >= halo
-        or tile % halo != 0
-        or n % tile != 0
-        or n < 2 * tile
-    ):
-        if ghosts is not None:
-            raise ValueError(
-                "ghosted multisweep requires f32 and tile-divisible local "
-                f"shapes (got dtype={x.dtype}, n={n}, tile={tile})"
-            )
-        from ...smoothers.smoother import BlockJacobiSmoother, apply_smoother
-
-        sm = BlockJacobiSmoother(inv=s_inv)
-        for _ in range(n_sweeps):
-            x = x + apply_smoother(sm, b - bt_matvec(a, x), alpha)
-        if emit_residual:
-            return x, b - bt_matvec(a, x)
-        return x
-
-    ml, mu = _mform_ops(a, s_inv, ml, mu)
-    ops = (ml, mu, s_inv) + ((a.diag,) if emit_residual else ())
-    gops, gvec = _zero_ghosts(bs, halo, x.dtype, len(ops)) if ghosts is None else ghosts
-    (m_c, m_l, m_r), (v_c, v_l, v_r) = _halo_specs(bs, tile, halo)
-    g_ops_spec, g_vec_spec = _ghost_specs()
-    in_specs = (
-        [g_ops_spec, g_vec_spec]
-        + [m_c, m_l, m_r] * len(ops)  # ml, mu, s_inv [, ad]
-        + [v_c, v_l, v_r] * 2  # x, b
-    )
-    kernel = functools.partial(
-        _wide_sweep_kernel, alpha=alpha, bs=bs, n_sweeps=n_sweeps, halo=halo, tile=tile,
-        emit_residual=emit_residual,
-    )
-    args = [gops, gvec]
-    for arr in ops:
-        args += [arr, arr, arr]
-    args += [x, x, x, b, b, b]
-    shape = jax.ShapeDtypeStruct((bs, n), x.dtype)
-    out_specs = [v_c, v_c] if emit_residual else v_c
-    out_shape = [shape, shape] if emit_residual else shape
-    with _x32_scope():
-        res = pl.pallas_call(
-            kernel,
-            grid=(n // tile,),
-            in_specs=in_specs,
-            out_specs=out_specs,
-            out_shape=out_shape,
-            interpret=interpret,
-        )(*args)
-    return tuple(res) if emit_residual else res
-
-
-# ---------------------------------------------------------------------------
-# Float-float stencil defect (TRUE-precision cycle hot loop)
-# ---------------------------------------------------------------------------
-#
-# The interior of ``df64.ff_bt_defect_stencil`` — ``r = b - A x`` with ONE
-# broadcast (bs, bs) float-float block per diagonal — is the hot loop of the
-# true-precision progressive cycle: ~7 evaluations per V-cycle at the 1e8-DoF
-# north star.  The XLA formulation (serialized fori_loop chunks of fenceless
-# EFT chains) runs ~80x above its HBM floor (x, b pairs in + r pair out =
-# 2.4 GB at 1e8 DoF ~ 5 ms); this kernel does the whole EFT chain in VMEM in
-# one pass, mirroring ``df64._contract_ff``'s operation order exactly
-# (diag, lower, upper; block columns ascending; product negated then added).
-
-
-def _ff_stencil_defect_kernel(
-    dh, lh, uh, dl, ll, ul, xhc, xhl, xhr, xlc, xll, xlr, bh, bl, oh, ol, *, bs
+    emit_residual: bool = False, ghosts=None, ml=None, mu=None,
 ):
-    from ..df64 import FF, ff_add, ff_mul, ff_neg
-
-    i = pl.program_id(0)
-    ni = pl.num_programs(0)
-    xh = xhc[...]
-    xhm, xhp = _neighbor_splice(xh, xhl[...], xhr[...], i, ni)
-    xlo = xlc[...]
-    xlm, xlp = _neighbor_splice(xlo, xll[...], xlr[...], i, ni)
-    acc = FF(bh[...], bl[...])
-    for mh_ref, ml_ref, vh, vl in (
-        (dh, dl, xh, xlo),
-        (lh, ll, xhm, xlm),
-        (uh, ul, xhp, xlp),
-    ):
-        for j in range(bs):
-            a = FF(mh_ref[:, j, :], ml_ref[:, j, :])  # (bs, 1) broadcast block col
-            t = ff_mul(a, FF(vh[j : j + 1, :], vl[j : j + 1, :]))
-            acc = ff_add(acc, ff_neg(t))
-    oh[...] = acc.hi
-    ol[...] = acc.lo
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def pallas_ff_stencil_mid_defect(hi_mid, lo_mid, x_ff, b_ff, interpret: bool = False):
-    """Interior (mid-stencil-everywhere) float-float defect as ONE Pallas
-    pass; returns ``None``-equivalent via fallback in the caller for
-    unsupported dtypes/shapes.  ``hi_mid``/``lo_mid`` are BlockTridiags of
-    shape (bs, bs, 1); x_ff/b_ff are FF pairs of (bs, n) f32 vectors.
-
-    Boundary columns are WRONG here (computed with the interior block) —
-    the caller splices the exact boundary windows afterwards, exactly like
-    the XLA path (``df64.ff_bt_defect_stencil``)."""
-    from ..df64 import FF
-
-    bs, _, _one = hi_mid.diag.shape
-    n = x_ff.hi.shape[-1]
-    # own tile pick: 8 (bs, tile) vector streams (x/b pairs in with neighbor
-    # tiles, r pair out) PLUS ~40 live EFT-chain temporaries per lane (the
-    # error-free transforms hold many intermediates — measured 23.9 MB scoped
-    # VMEM at tile 32768, over the 16 MB limit), double-buffered
-    per_lane = (8 + 40) * bs * jnp.dtype(jnp.float32).itemsize * 2
-    tile = 1 << 20
-    while tile > 128 and (
-        tile * per_lane > 6 * 1024 * 1024 or n % tile != 0 or tile > n // 2
-    ):
-        tile //= 2
-    if x_ff.hi.dtype != jnp.float32 or n % tile != 0 or n < 2 * tile:
-        return None
-
-    spec_m = pl.BlockSpec((bs, bs, 1), lambda i: (0, 0, 0), memory_space=pltpu.VMEM)
-    _, specv, specl, specr = _specs(bs, tile)
-    kernel = functools.partial(_ff_stencil_defect_kernel, bs=bs)
-    shape = jax.ShapeDtypeStruct((bs, n), jnp.float32)
-    with _x32_scope():
-        oh, ol = pl.pallas_call(
-            kernel,
-            grid=(n // tile,),
-            in_specs=[spec_m] * 6 + [specv, specl, specr] * 2 + [specv] * 2,
-            out_specs=[specv, specv],
-            out_shape=[shape, shape],
-            interpret=interpret,
-        )(
-            hi_mid.diag, hi_mid.lower, hi_mid.upper,
-            lo_mid.diag, lo_mid.lower, lo_mid.upper,
-            x_ff.hi, x_ff.hi, x_ff.hi, x_ff.lo, x_ff.lo, x_ff.lo,
-            b_ff.hi, b_ff.lo,
-        )
-    return FF(oh, ol)
+    """``n_sweeps`` fused damped block-Jacobi sweeps in one pass, optionally
+    also returning ``r = b - A x_new`` from the same pass (the V-cycle's
+    restrict-side matvec).  ``s_inv``, ``ml``/``mu`` and ``ghosts`` as in
+    :func:`pallas_chebyshev_multisweep`."""
+    return _fused_pass(
+        a, s_inv, x, b, steps=n_sweeps, alpha=alpha, coef=None,
+        emit_residual=emit_residual, ghosts=ghosts, ml=ml, mu=mu, interpret=interpret,
+    )

@@ -61,18 +61,16 @@ def block_prolong_constant(e: jax.Array, n: int) -> BlockProlong:
     return BlockProlong(jnp.broadcast_to(jnp.asarray(e)[None, :, :, None], (1, *e.shape, n)))
 
 
-# Above this many coarse columns the one-shot interior-pad interleave is
-# unusable on the remote TPU toolchain (see bp_prolong) and the prolongation
-# runs in serialized chunks of at most this size instead.
+# Above this many coarse columns the prolongation runs in serialized chunks
+# of at most this size (see bp_prolong).
 _PROLONG_CHUNK = 1 << 20
 
 
 def _bp_prolong_pads(blocks: jax.Array, xc: jax.Array) -> jax.Array:
     """Per-offset contractions interleaved onto the fine axis with native
     interior padding (``lax.pad``) — NOT an ``(bs_f, n_c, r)`` einsum +
-    reshape: that intermediate puts ``r`` (2 or 4) on the 128-wide TPU lane
-    axis, and its tiled layout pads it 128/r-fold (a 12.9 GB materialized
-    temp at the 1e8-DoF north star, measured in tools/diag_xl_mem5.py)."""
+    reshape: that intermediate puts the tiny ``r`` (2 or 4) on the minor
+    axis, which a tiled layout pads many-fold."""
     r = blocks.shape[0]
     zero = jnp.zeros((), xc.dtype)
     out = None
@@ -88,11 +86,10 @@ def bp_prolong(l: BlockProlong, xc: jax.Array) -> jax.Array:
 
     Small transfers take the interior-pad interleave in one shot.  Above
     ``_PROLONG_CHUNK`` coarse columns the SAME formulation runs over
-    serialized chunks (``fori_loop`` + dynamic_update_slice): the TPU
-    compiler's handling of interior-dilated pads is pathological at large
-    sizes (407 s compile at 1.26e7 columns, compile-helper OOM SIGKILL at
-    5e7 — tools/diag_prolong4.py), while per-chunk pads compile in seconds
-    and add no materialized temporaries.  Values are bit-identical between
+    serialized chunks (``fori_loop`` + dynamic_update_slice), which bounds
+    the compile of interior-dilated pads at large sizes and adds no
+    materialized temporaries.  Whether XLA:GPU needs the chunks is open
+    (ROADMAP, serialized chunking).  Values are bit-identical between
     the two paths (each fine column is written by exactly one offset)."""
     r = l.r
     bs_f = l.blocks.shape[1]
@@ -136,10 +133,8 @@ def bp_restrict(l: BlockProlong, rf: jax.Array) -> jax.Array:
 
     Above ``_PROLONG_CHUNK`` coarse columns the strided extraction runs over
     serialized chunks, each started from a contiguous ``dynamic_slice`` copy:
-    fusing the lane-strided slices directly with a large producer (e.g. the
-    Pallas float-float defect) makes XLA emit a pathological gather kernel —
-    measured 719 ms for one restrict of a kernel output at the 1e8-DoF north
-    star vs ~220 ms chunked (and ~2 ms from a plain parameter).  Values are
+    fusing the strided slices directly with a large producer (e.g. the
+    float-float defect) can make XLA emit a slow gather kernel.  Values are
     bit-identical (chunk boundaries are multiples of ``r``)."""
     r = l.r
     bs_c = l.blocks.shape[2]
@@ -172,8 +167,8 @@ def _sandwich(ba: jax.Array, m: jax.Array, bb: jax.Array) -> jax.Array:
 
     Unrolled broadcast-sum, NOT einsum, for the same reason as
     :func:`~.block_tridiag.block_mul`: a dot_general with a tiny contraction
-    batched over n forces a batch-major relayout on TPU; the unrolled form
-    keeps n on the lanes (this runs on-device in the accelerator-side
+    batched over n can force a batch-major relayout; the unrolled form
+    keeps n contiguous (this runs on-device in the accelerator-side
     hierarchy build)."""
     bsf, bsc = ba.shape[0], ba.shape[1]
     mb = [
@@ -235,7 +230,7 @@ class RaggedBlockProlong:
 
     Mirrors the reference's arbitrary-partition agglomeration API
     (``AgglomeratedDgMesh1(p, agg::Vector{Vector{Int64}}, ...)``,
-    ``src/agglomerated_dg_mesh.jl:400-495``) in TPU form: tables padded to the
+    ``src/agglomerated_dg_mesh.jl:400-495``) in array form: tables padded to the
     max group size ``r_max`` with ZERO blocks, so clamped-index gathers/scatters
     need no masks (zero contributions are exact).  :class:`BlockProlong` remains
     the uniform fast path (pure reshapes on the solve path).

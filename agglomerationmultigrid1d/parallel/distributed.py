@@ -2,18 +2,18 @@
 
 Strategy (the "How to Scale Your Model" recipe, applied to a banded solver):
 
-1. pick a 1D device mesh over axis ``"x"`` (ICI ring);
+1. pick a 1D device mesh over axis ``"x"``;
 2. annotate every fine-level operator/vector with a ``NamedSharding`` that
    splits the trailing element/node axis; levels below a size threshold stay
    fully replicated (the multigrid coarse-grid analogue of data-parallel
    replication);
 3. jit the *same* ``models.solvers`` V-cycle — XLA's SPMD partitioner turns the
    pad+slice neighbor shifts of the block-tridiagonal matvecs into one-column
-   ``collective-permute``s over ICI and the norm reductions into ``psum``s.
+   ``collective-permute``s and the norm reductions into ``psum``s.
 
-No NCCL/MPI analogue, no hand-written communication on this path; the
-hand-scheduled ``shard_map``/ring-kernel variant lives in ``parallel.halo`` and
-``ops.pallas`` for when the compiler's choices need overriding.
+No hand-written communication on this path; the hand-scheduled
+``shard_map`` variant lives in ``parallel.halo`` and
+``parallel.sharded_kernels`` for when the compiler's choices need overriding.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 ``halo_shift`` is the distributed twin of ``ops.shifts.shift`` for code that
 runs *inside* ``jax.shard_map`` over an element-axis mesh dimension: the local
-zero-padded shift is corrected by pulling the neighbor's edge column over ICI
+zero-padded shift is corrected by pulling the neighbor's edge column
 with ``lax.ppermute`` (devices without a source keep the zero fill — exactly
 the global boundary condition).
 

@@ -3,12 +3,11 @@
 The single-controller path (``parallel.distributed.shard_hierarchy``)
 materializes every level globally on one host before ``device_put`` — fine for
 one process driving N chips, but at the 10^8-DoF north star the global fine
-level is itself the host-memory wall, and on a real pod slice each host can
-only address its own chips anyway.  This module is the multi-host skeleton:
+level is itself the host-memory wall, and in a multi-host cluster each host can
+only address its own devices anyway.  This module is the multi-host skeleton:
 
 * :func:`initialize` wires ``jax.distributed.initialize`` (with gloo CPU
-  collectives for the multi-process CPU test rig — a TPU pod slice picks its
-  native ICI backend automatically);
+  collectives for the multi-process CPU test rig; on GPUs XLA uses NCCL);
 * :func:`build_sharded_xl_problem` constructs the stencil-inflated hierarchy
   (``models.stencil_setup``) shard by shard: every process materializes ONLY
   the slices owned by its addressable devices (via
@@ -20,7 +19,7 @@ only address its own chips anyway.  This module is the multi-host skeleton:
 Levels below ``min_blocks_per_device`` blocks per device replicate, exactly
 like the single-controller policy; the coarse factorization always replicates.
 The result solves with the same ``models.solvers`` entry points — XLA's SPMD
-partitioner emits collective-permutes over ICI between hosts — or the fused
+partitioner emits collective-permutes between hosts — or the fused
 ``shard=`` kernel path (``parallel.sharded_kernels``).
 """
 
@@ -53,9 +52,8 @@ def initialize(
 ) -> None:
     """``jax.distributed.initialize`` wrapper.
 
-    On a TPU pod slice the three arguments are auto-detected from the
-    environment (call with no arguments).  For the multi-process CPU rig pass
-    them explicitly and set ``cpu_collectives="gloo"`` BEFORE any backend is
+    Pass the coordinator address, process count and process id
+    explicitly; for the multi-process CPU rig also and set ``cpu_collectives="gloo"`` BEFORE any backend is
     instantiated.  No-op if the distributed runtime is already up.
     """
     try:

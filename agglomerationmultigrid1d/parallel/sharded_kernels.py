@@ -1,26 +1,23 @@
-"""Fused Pallas smoother sweeps *inside* ``jax.shard_map``.
+"""Fused smoother sweeps *inside* ``jax.shard_map``.
 
-The north-star metric is smoother nnz/s at multiple hosts: that requires the
-temporally-blocked multisweep kernel (``ops.pallas.block_kernels``) to run on
-each device's local shard with real neighbor data, not the XLA einsum path.
-The recipe per smoother application:
+Each device runs the temporally-blocked multisweep (``ops.pallas.block_kernels``)
+on its local shard of an element-sharded block level, with real neighbour data:
 
-1. exchange one kernel-halo (128 columns) of x, b and the kernel's operator
-   streams (M-form: ml, mu, s_inv [, diag]) with the two ring neighbors via
-   ``lax.ppermute`` (devices without a source keep zeros — exactly the global
-   boundary);
-2. run the widened-tile multisweep on the local shard, passing the ghosts into
-   the kernel (``_wide_sweep_kernel``'s ``gops``/``gvec``), so the center
-   columns are exact for ``n_sweeps <= 128``;
-3. XLA overlaps the tiny ppermutes (a few KB) with the previous level's work.
+1. exchange ``kernel_halo`` columns of x, b and the operator streams the
+   kernel reads (M-form: ml, mu, s_inv [, diag]) with the two ring neighbours
+   via ``lax.ppermute`` (devices without a source keep zeros — exactly the
+   global boundary);
+2. run the fused pass on the local shard with those ghosts, so the shard's
+   columns are exact.
 
-For dtypes/shapes the kernel can't take (f64 parity runs, small coarse shards)
-the local function degrades to a halo-aware XLA sweep built on
-:func:`..parallel.halo.halo_shift` — same numerics, no fused pass.
+Where :func:`..ops.pallas.use_multisweep_kernel` sends the local shape to XLA
+(f64 parity runs, block sizes the kernel does not take), and on any device
+but a GPU (:func:`..ops.pallas.block_kernels.on_gpu`), the local function is
+a halo-aware XLA sweep built on :func:`..parallel.halo.halo_shift` — the
+same numerics without the fused pass.
 
 The reference is a serial solver (no distributed code to mirror,
-``SURVEY.md`` §2 "Parallelism strategies — NONE"); this module is the
-TPU-native scaling path prescribed by BASELINE.json's north star.
+``SURVEY.md`` §2 "Parallelism strategies — NONE").
 """
 
 from __future__ import annotations
@@ -33,35 +30,32 @@ from jax import lax
 from jax.sharding import PartitionSpec as P
 
 from ..ops.block_tridiag import BlockTridiag, block_mul
+from ..ops.pallas import block_kernels
 from ..ops.pallas.block_kernels import (
-    _multisweep_impl,
-    multisweep_shapes_ok,
+    kernel_halo,
+    pallas_block_jacobi_multisweep,
     pallas_chebyshev_multisweep,
+    use_multisweep_kernel,
 )
 from .halo import halo_shift
 
-HALO = 128  # kernel halo width (TPU lane granularity)
 
-
-def _edge_ghosts(arr: jax.Array, axis: str) -> jax.Array:
-    """(…, 2*HALO): left neighbor's last HALO columns | right neighbor's first.
-
-    Ring-edge devices keep zero fill (= the global zero-Dirichlet boundary the
-    kernels assume beyond the domain).
-    """
+def _edge_ghosts(arr: jax.Array, axis: str, width: int) -> jax.Array:
+    """(…, 2 * width): left neighbour's last ``width`` columns | right
+    neighbour's first.  Ring-edge devices keep zero fill (= the global
+    zero-Dirichlet boundary the kernels assume beyond the domain)."""
     n_dev = lax.axis_size(axis)
     to_right = [(i, i + 1) for i in range(n_dev - 1)]
     to_left = [(i, i - 1) for i in range(1, n_dev)]
-    left = lax.ppermute(arr[..., -HALO:], axis, to_right)
-    right = lax.ppermute(arr[..., :HALO], axis, to_left)
+    left = lax.ppermute(arr[..., -width:], axis, to_right)
+    right = lax.ppermute(arr[..., :width], axis, to_left)
     return jnp.concatenate([left, right], axis=-1)
 
 
-def _gather_ghosts(ops, x, b, axis):
-    """Exchange ghosts for exactly the operator streams the kernel reads
-    (M-form: ml, mu, s_inv [, a.diag for emit_residual])."""
-    gops = jnp.stack([_edge_ghosts(m, axis) for m in ops])
-    gvec = jnp.stack([_edge_ghosts(x, axis), _edge_ghosts(b, axis)])
+def _gather_ghosts(ops, x, b, axis, width):
+    """Ghosts for exactly the operator streams the kernel reads."""
+    gops = jnp.stack([_edge_ghosts(m, axis, width) for m in ops])
+    gvec = jnp.stack([_edge_ghosts(x, axis, width), _edge_ghosts(b, axis, width)])
     return gops, gvec
 
 
@@ -72,244 +66,112 @@ def _halo_matvec(ad, al, au, x, axis):
     return y
 
 
-# strip width for the overlapped path: wide enough for the kernel's minimum
-# 2-tile launch at tile = HALO (W % 128 == 0, W >= 2 * 128, W not a power of
-# two so _pick_tile lands on 128)
-_STRIP_W = 5 * HALO
-
-
-def _strip_ghosts(ops, x, b, gops, gvec, lo: int, n: int):
-    """Ghost arrays for the edge-strip kernel on columns [lo, lo + W): the
-    outer side takes the true ppermute ghost, the inner side the adjacent
-    local columns."""
-    W = _STRIP_W
-    if lo == 0:
-        inner = slice(W, W + HALO)
-        g_op = [jnp.concatenate([gops[s, ..., :HALO], op[..., inner]], axis=-1)
-                for s, op in enumerate(ops)]
-        g_x = jnp.concatenate([gvec[0, :, :HALO], x[:, inner]], axis=-1)
-        g_b = jnp.concatenate([gvec[1, :, :HALO], b[:, inner]], axis=-1)
-    else:
-        inner = slice(lo - HALO, lo)
-        g_op = [jnp.concatenate([op[..., inner], gops[s, ..., HALO:]], axis=-1)
-                for s, op in enumerate(ops)]
-        g_x = jnp.concatenate([x[:, inner], gvec[0, :, HALO:]], axis=-1)
-        g_b = jnp.concatenate([b[:, inner], gvec[1, :, HALO:]], axis=-1)
-    return jnp.stack(g_op), jnp.stack([g_x, g_b])
-
-
-def _overlap_splice(res_int, res_l, res_r, n: int, n_steps: int, emit_residual):
-    """Replace the interior pass's shard-edge columns (computed with zero
-    ghosts, hence corrupted ``n_steps`` columns deep — one more for the
-    emitted residual) with the ghost-exact strip values."""
-    s = n_steps + 1
-    dus = jax.lax.dynamic_update_slice
-
-    def one(full, left, right):
-        full = dus(full, left[:, :s], (0, 0))
-        return dus(full, right[:, -s:], (0, n - s))
-
-    if emit_residual:
-        return one(res_int[0], res_l[0], res_r[0]), one(res_int[1], res_l[1], res_r[1])
-    return one(res_int, res_l, res_r)
-
-
-def _local_multisweep(
-    ad, al, au, binv, ml, mu, x, b,
-    *, axis, n_sweeps, alpha, emit_residual, use_pallas, interpret, overlap=True,
-):
-    bs, n_local = x.shape
-    if use_pallas and n_local >= 2 * HALO and multisweep_shapes_ok(bs, n_local, x.dtype, n_sweeps):
-        ops = (ml, mu, binv) + ((ad,) if emit_residual else ())
-        a = BlockTridiag(lower=al, diag=ad, upper=au)
-        W = _STRIP_W
-        if overlap and n_local >= 2 * W + HALO:
-            # overlapped schedule: the full-shard kernel runs with ZERO ghosts
-            # (no data dependence on the ppermutes, so XLA's async collective-
-            # permute can fly while it computes); the shard-edge columns it
-            # corrupts are recomputed by two tiny ghost-exact strip kernels
-            # and spliced in.
-            res_int = _multisweep_impl(
-                a, binv, x, b, n_sweeps, alpha, interpret, emit_residual,
-                ml=ml, mu=mu,
-            )
-            gops, gvec = _gather_ghosts(ops, x, b, axis)
-
-            def strip(lo):
-                sl = slice(lo, lo + W)
-                a_s = BlockTridiag(
-                    lower=al[..., sl], diag=ad[..., sl], upper=au[..., sl]
-                )
-                gh = _strip_ghosts(ops, x, b, gops, gvec, lo, n_local)
-                return _multisweep_impl(
-                    a_s, binv[..., sl], x[:, sl], b[:, sl], n_sweeps, alpha,
-                    interpret, emit_residual, ghosts=gh,
-                    ml=ml[..., sl], mu=mu[..., sl],
-                )
-
-            return _overlap_splice(
-                res_int, strip(0), strip(n_local - W), n_local, n_sweeps,
-                emit_residual,
-            )
-        ghosts = _gather_ghosts(ops, x, b, axis)
-        return _multisweep_impl(
-            a, binv, x, b, n_sweeps, alpha, interpret, emit_residual,
-            ghosts=ghosts, ml=ml, mu=mu,
-        )
-    # halo-aware XLA fallback (f64 parity runs / awkward local shapes)
-    for _ in range(n_sweeps):
-        r = b - _halo_matvec(ad, al, au, x, axis)
-        x = x + alpha * jnp.einsum("ijn,jn->in", binv, r)
-    if emit_residual:
-        return x, b - _halo_matvec(ad, al, au, x, axis)
-    return x
-
-
-def _local_cheb(
+def _local_smooth(
     coef, ad, al, au, binv, ml, mu, x, b,
-    *, axis, degree, emit_residual, use_pallas, interpret, overlap=True,
+    *, axis, steps, alpha, emit_residual, use_pallas, interpret,
 ):
+    """One shard's fused pass (kernel with ghosts) or halo-aware XLA sweeps;
+    ``coef`` given selects Chebyshev, else damped Jacobi with ``alpha``."""
     bs, n_local = x.shape
-    if use_pallas and n_local >= 2 * HALO and multisweep_shapes_ok(bs, n_local, x.dtype, degree):
+    xla = functools.partial(
+        _local_smooth_xla, coef, ad, al, au, binv,
+        axis=axis, steps=steps, alpha=alpha, emit_residual=emit_residual,
+    )
+    if not (use_pallas and use_multisweep_kernel(bs, n_local, x.dtype)):
+        return xla(x, b)
+
+    def kernel(x, b):
         ops = (ml, mu, binv) + ((ad,) if emit_residual else ())
+        ghosts = _gather_ghosts(ops, x, b, axis, kernel_halo(steps, emit_residual))
         a = BlockTridiag(lower=al, diag=ad, upper=au)
-        W = _STRIP_W
-        if overlap and n_local >= 2 * W + HALO:
-            # see _local_multisweep: zero-ghost full pass overlapped with the
-            # ppermutes, ghost-exact strips spliced over the edge columns
-            res_int = pallas_chebyshev_multisweep(
-                a, binv, x, b, coef, degree,
-                interpret=interpret, emit_residual=emit_residual, ml=ml, mu=mu,
-            )
-            gops, gvec = _gather_ghosts(ops, x, b, axis)
-
-            def strip(lo):
-                sl = slice(lo, lo + W)
-                a_s = BlockTridiag(
-                    lower=al[..., sl], diag=ad[..., sl], upper=au[..., sl]
-                )
-                gh = _strip_ghosts(ops, x, b, gops, gvec, lo, n_local)
-                return pallas_chebyshev_multisweep(
-                    a_s, binv[..., sl], x[:, sl], b[:, sl], coef, degree,
-                    interpret=interpret, emit_residual=emit_residual, ghosts=gh,
-                    ml=ml[..., sl], mu=mu[..., sl],
-                )
-
-            return _overlap_splice(
-                res_int, strip(0), strip(n_local - W), n_local, degree,
-                emit_residual,
-            )
-        ghosts = _gather_ghosts(ops, x, b, axis)
-        return pallas_chebyshev_multisweep(
-            a, binv, x, b, coef, degree,
-            interpret=interpret, emit_residual=emit_residual, ghosts=ghosts,
-            ml=ml, mu=mu,
+        kw = dict(interpret=interpret, emit_residual=emit_residual, ghosts=ghosts,
+                  ml=ml, mu=mu)
+        if coef is not None:
+            return pallas_chebyshev_multisweep(a, binv, x, b, coef, steps, **kw)
+        return pallas_block_jacobi_multisweep(
+            a, binv, x, b, n_sweeps=steps, alpha=alpha, **kw
         )
-    cf = coef.astype(x.dtype)
-    d = jnp.zeros_like(x)
-    for s in range(degree):
-        z = jnp.einsum(
-            "ijn,jn->in", binv, b - _halo_matvec(ad, al, au, x, axis)
-        )
-        d = cf[s, 0] * d + cf[s, 1] * z
-        x = x + d
+
+    return block_kernels.on_gpu(kernel, xla, x, b, interpret=interpret)
+
+
+def _local_smooth_xla(coef, ad, al, au, binv, x, b, *, axis, steps, alpha, emit_residual):
+    """Halo-aware XLA sweeps: the same numerics as the fused pass."""
+    if coef is not None:
+        cf = coef.astype(x.dtype)
+        d = jnp.zeros_like(x)
+        for s in range(steps):
+            z = jnp.einsum("ijn,jn->in", binv, b - _halo_matvec(ad, al, au, x, axis))
+            d = cf[s, 0] * d + cf[s, 1] * z
+            x = x + d
+    else:
+        for _ in range(steps):
+            r = b - _halo_matvec(ad, al, au, x, axis)
+            x = x + alpha * jnp.einsum("ijn,jn->in", binv, r)
     if emit_residual:
         return x, b - _halo_matvec(ad, al, au, x, axis)
     return x
 
 
-def _wrapper_mform(a, s_inv, ml, mu, use_pallas, dtype):
-    """Fill the M-form streams when the Pallas path can use them; on paths that
-    can never take the kernel (f64 parity / use_pallas=False) pass inert
-    aliases instead — shard_map needs array args, and an alias of ``a.diag``
-    costs no memory or traffic."""
-    if use_pallas and dtype == jnp.float32:
-        if ml is None:
-            ml = block_mul(s_inv, a.lower)
-        if mu is None:
-            mu = block_mul(s_inv, a.upper)
-        return ml, mu
-    return (ml if ml is not None else a.diag), (mu if mu is not None else a.diag)
-
-
-def sharded_multisweep(
-    mesh,
-    axis: str,
-    a: BlockTridiag,
-    s_inv: jax.Array,
-    x: jax.Array,
-    b: jax.Array,
-    *,
-    n_sweeps: int = 3,
-    alpha: float = 2.0 / 3.0,
-    emit_residual: bool = False,
-    use_pallas: bool = True,
-    interpret: bool = False,
-    ml=None,
-    mu=None,
-    overlap: bool = True,
-):
-    """``n_sweeps`` fused damped block-Jacobi sweeps on an element-sharded
-    operator: the Pallas multisweep per shard + one 128-column ppermute halo
-    per side (optionally also emitting ``r = b - A x_new``).  ``ml``/``mu``
-    are the setup-time M-form streams (``S^-1 A_lower/upper``); computed here
-    (sharded, elementwise — no communication) when not supplied.
-
-    ``overlap=True`` (default, large shards): the full-shard kernel launches
-    with zero ghosts — independent of the halo ppermutes, so XLA's async
-    collective-permute overlaps the exchange with ~all of the sweep compute —
-    and two ghost-exact 640-column strip kernels recompute the shard-edge
-    columns the zero ghosts corrupt (``n_steps`` deep; ``+1`` for the emitted
-    residual).  Identical results to the non-overlapped schedule up to f32
-    rounding of the recomputed edge columns."""
-    ml, mu = _wrapper_mform(a, s_inv, ml, mu, use_pallas, x.dtype)
+def _sharded_smooth(mesh, axis, a, s_inv, x, b, coef, *, steps, alpha,
+                    emit_residual, use_pallas, interpret, ml, mu):
+    if use_pallas and x.dtype == jnp.float32:
+        ml = block_mul(s_inv, a.lower) if ml is None else ml
+        mu = block_mul(s_inv, a.upper) if mu is None else mu
+    else:
+        # paths that never take the kernel get inert aliases: shard_map needs
+        # array args, and an alias of ``a.diag`` costs no memory or traffic
+        ml = a.diag if ml is None else ml
+        mu = a.diag if mu is None else mu
+    if coef is None:
+        coef = jnp.zeros((steps, 2), jnp.float32)
+        cheb = False
+    else:
+        cheb = True
     m = P(None, None, axis)
     v = P(None, axis)
-    fn = functools.partial(
-        _local_multisweep,
-        axis=axis, n_sweeps=n_sweeps, alpha=alpha,
-        emit_residual=emit_residual, use_pallas=use_pallas, interpret=interpret,
-        overlap=overlap,
-    )
-    return jax.shard_map(
-        fn, mesh=mesh,
-        in_specs=(m, m, m, m, m, m, v, v),
-        out_specs=(v, v) if emit_residual else v,
-        check_vma=False,  # pallas_call out_shapes carry no vma annotation
-    )(a.diag, a.lower, a.upper, s_inv, ml, mu, x, b)
 
+    def fn(cf, *arrs):
+        return _local_smooth(
+            cf if cheb else None, *arrs, axis=axis, steps=steps, alpha=alpha,
+            emit_residual=emit_residual, use_pallas=use_pallas, interpret=interpret,
+        )
 
-def sharded_chebyshev_multisweep(
-    mesh,
-    axis: str,
-    a: BlockTridiag,
-    s_inv: jax.Array,
-    x: jax.Array,
-    b: jax.Array,
-    coef: jax.Array,
-    *,
-    degree: int = 3,
-    emit_residual: bool = False,
-    use_pallas: bool = True,
-    interpret: bool = False,
-    ml=None,
-    mu=None,
-    overlap: bool = True,
-):
-    """Degree-``degree`` Chebyshev smoothing, sharded (see sharded_multisweep,
-    including the overlapped halo-exchange schedule)."""
-    ml, mu = _wrapper_mform(a, s_inv, ml, mu, use_pallas, x.dtype)
-    m = P(None, None, axis)
-    v = P(None, axis)
-    fn = functools.partial(
-        _local_cheb,
-        axis=axis, degree=degree,
-        emit_residual=emit_residual, use_pallas=use_pallas, interpret=interpret,
-        overlap=overlap,
-    )
     return jax.shard_map(
         fn, mesh=mesh,
         in_specs=(P(None, None), m, m, m, m, m, m, v, v),
         out_specs=(v, v) if emit_residual else v,
         check_vma=False,  # pallas_call out_shapes carry no vma annotation
     )(coef, a.diag, a.lower, a.upper, s_inv, ml, mu, x, b)
+
+
+def sharded_multisweep(
+    mesh, axis: str, a: BlockTridiag, s_inv: jax.Array, x: jax.Array, b: jax.Array,
+    *, n_sweeps: int = 3, alpha: float = 2.0 / 3.0, emit_residual: bool = False,
+    use_pallas: bool = True, interpret: bool = False, ml=None, mu=None,
+):
+    """``n_sweeps`` fused damped block-Jacobi sweeps on an element-sharded
+    operator: the fused pass per shard plus one ``kernel_halo``-column
+    ppermute ghost exchange per side (optionally also emitting
+    ``r = b - A x_new``).  ``ml``/``mu`` are the setup-time M-form streams
+    (``S^-1 A_lower/upper``); computed here (sharded, elementwise — no
+    communication) when not supplied."""
+    return _sharded_smooth(
+        mesh, axis, a, s_inv, x, b, None, steps=n_sweeps, alpha=alpha,
+        emit_residual=emit_residual, use_pallas=use_pallas, interpret=interpret,
+        ml=ml, mu=mu,
+    )
+
+
+def sharded_chebyshev_multisweep(
+    mesh, axis: str, a: BlockTridiag, s_inv: jax.Array, x: jax.Array, b: jax.Array,
+    coef: jax.Array, *, degree: int = 3, emit_residual: bool = False,
+    use_pallas: bool = True, interpret: bool = False, ml=None, mu=None,
+):
+    """Degree-``degree`` Chebyshev smoothing, sharded (see
+    :func:`sharded_multisweep`)."""
+    return _sharded_smooth(
+        mesh, axis, a, s_inv, x, b, coef, steps=degree, alpha=None,
+        emit_residual=emit_residual, use_pallas=use_pallas, interpret=interpret,
+        ml=ml, mu=mu,
+    )

@@ -58,7 +58,7 @@ class SchwarzSmoother(NamedTuple):
 
 
 class ChebyshevSmoother(NamedTuple):
-    """Chebyshev-accelerated smoothing over a base smoother (TPU-native
+    """Chebyshev-accelerated smoothing over a base smoother (an
     extension; the reference has only stationary damped smoothers).
 
     ``k`` applications target the interval ``[lam_lo, lam_hi]`` of the
@@ -110,8 +110,7 @@ def _invert_windows(windows: jax.Array) -> jax.Array:
     Block sizes 1/2 use the closed-form cofactor inverse, jitted directly on
     the SoA layout (no transposes or host round trips — both dominated setup
     at 10^7+ elements); larger blocks go through the native C++ batched
-    Gauss-Jordan (NumPy LAPACK fallback) on the host — the TPU backend has no
-    f64 LU, and these are the counterparts of the reference's per-block
+    Gauss-Jordan (NumPy LAPACK fallback) on the host in f64 — these are the counterparts of the reference's per-block
     ``la.lu`` factorizations (``smoother.jl:112,:127,:160``)."""
     import numpy as np
 

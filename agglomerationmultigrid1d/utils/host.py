@@ -1,11 +1,12 @@
 """Host-side setup execution.
 
 Hierarchy construction is thousands of tiny eager array ops; dispatching those
-to a (possibly remote) TPU one by one is pathologically slow and pays a
-compilation round-trip per op.  All setup therefore runs on the JAX CPU backend
-and only the finished operator pytrees are transferred to the accelerator —
-mirroring how the reference does all assembly in plain serial Julia before the
-solve.
+to an accelerator one by one pays a launch and a compilation per op.  All setup
+therefore runs on the JAX CPU backend and only the finished operator pytrees
+are transferred to the accelerator — mirroring how the reference does all
+assembly in plain serial Julia before the solve.  So the CPU backend must be
+available beside the accelerator (do not set ``JAX_PLATFORMS`` to the
+accelerator alone).
 """
 
 from __future__ import annotations
@@ -44,21 +45,3 @@ def host_setup(fn):
             return fn(*args, **kwargs)
 
     return wrapper
-
-
-def enable_compilation_cache(path: str | None = None) -> None:
-    """Turn on JAX's persistent compilation cache.
-
-    Hierarchy setup triggers ~100 small CPU compiles and the fused solver
-    programs cost 60-90 s of TPU compilation through the remote toolchain; the
-    persistent cache amortizes both across processes.  Call once at program
-    start (bench.py and the driver entry points do)."""
-    import os
-
-    if path is None:
-        path = os.environ.get(
-            "AGGMG_COMPILE_CACHE", os.path.expanduser("~/.cache/aggmg_jax_cache")
-        )
-    os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)

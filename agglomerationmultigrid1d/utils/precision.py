@@ -1,9 +1,8 @@
 """Precision policies: f64 parity mode vs f32 fast path with defect correction.
 
 The reference is Float64 throughout with tolerances down to 1e-10 relative
-residual (``tests/full_heirarchy_test.jl:95``).  TPU f64 is emulated and slow;
-the fast path therefore runs the V-cycle in f32 (where the Pallas kernels live)
-inside an f64 defect-correction outer loop — the approximate inner solve is a
+residual (``tests/full_heirarchy_test.jl:95``).  The fast path runs the
+V-cycle in f32 (where the fused smoother kernels live) inside an f64 defect-correction outer loop — the approximate inner solve is a
 preconditioner, so the outer iteration still converges to full f64 accuracy
 (SURVEY §7 "hard parts" #1).
 """

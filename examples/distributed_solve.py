@@ -1,7 +1,7 @@
 """Element-axis-sharded multigrid over all local devices.
 
 Run with XLA_FLAGS=--xla_force_host_platform_device_count=8 on CPU to see the
-multi-device path without TPU hardware.
+multi-device path without accelerator hardware.
 """
 
 import sys as _sys

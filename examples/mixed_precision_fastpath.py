@@ -1,7 +1,8 @@
-"""Mixed-precision fast path: f32 Pallas V-cycle inside an f64 defect loop.
+"""Mixed-precision fast path: f32 V-cycles inside an f64-accurate defect loop.
 
-Solves a DG + agglomeration hierarchy to 1e-10 relative residual at f32 speed.
-Run on a TPU for the Pallas kernels; falls back to XLA elsewhere.
+Solves a DG + agglomeration hierarchy to 1e-10 relative residual.  On a GPU,
+levels the kernel route accepts (``ops.pallas.use_multisweep_kernel``) smooth
+with the fused multisweep kernel; the rest use XLA.
 """
 
 import sys as _sys

@@ -1,4 +1,4 @@
-"""The north-star solve: 10^8 DoF on one chip, to 1e-8 relative residual.
+"""The north-star solve: 10^8 DoF on one GPU, to 1e-8 relative residual.
 
 Demonstrates the full XL pipeline (cf. the reference's
 ``full_heirarchy_test.jl`` solve loop, scaled to BASELINE config-5 size):
@@ -12,10 +12,10 @@ Demonstrates the full XL pipeline (cf. the reference's
    at this scale ``eps_f32 * kappa_elem(A) ~ 6`` and any f32-valued operator
    application inside the cycle amplifies error, so every application runs
    from the float-float operator values, the coarse solve from an f64
-   factorization, and the outer defect in true (emulated) f64.
+   factorization, and the outer defect in true f64.
 
 Defaults to a laptop-friendly size; pass the element count for the real
-thing (needs a TPU with ~12 GB free HBM):
+thing (on one H100 it peaks near 16 GB of device memory):
 
     python examples/xl_north_star.py 50331648    # 1.007e8 DoF
 """

@@ -1,7 +1,7 @@
 """Block-cyclic-reduction coarse solver (ops/coarse_solve.py).
 
 The reference's coarsest-level solve is UMFPACK ``A \\ b`` at any size
-(``/root/reference/src/solvers.jl:39``); the TPU equivalents are a dense
+(``/root/reference/src/solvers.jl:39``); the equivalents here are a dense
 inverse for small levels and block cyclic reduction beyond
 ``DENSE_COARSE_MAX`` — these tests pin both to the direct solution.
 """

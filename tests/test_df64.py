@@ -1,7 +1,7 @@
 """Float-float (double-f32) arithmetic: accuracy invariants for the f64-speed
 defect path (ops/df64.py).  The reference runs all-native-f64 on CPU
-(src/solvers.jl:33); on TPU the mixed solver's defect must reach f64-class
-accuracy from f32 hardware ops — these tests pin the ~2^-48 error bound."""
+(src/solvers.jl:33); the mixed solver's defect must reach f64-class
+accuracy from f32 operations — these tests pin the ~2^-48 error bound."""
 
 import numpy as np
 import jax

@@ -118,7 +118,7 @@ def test_smoother_damps_high_frequencies():
 
 
 def test_chebyshev_smoothing_cuts_cycle_count():
-    """Chebyshev-accelerated smoothing (TPU-native extension) must converge in
+    """Chebyshev-accelerated smoothing (an extension) must converge in
     fewer V-cycles than the reference's damped sweeps at identical per-sweep
     cost, on both hierarchy families."""
     import jax.numpy as jnp
